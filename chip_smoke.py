@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
-"""GPU smoke run of gprf_torch: the flagship fused-Schur L-BFGS path on one card.
+"""GPU smoke run of gprf_torch: the flagship fused-Schur L-BFGS path on one card,
+on each of the objective's three routes.
 
     python3 chip_smoke.py        (from the repository root; needs one CUDA device)
 
 Phases, each of which raises on failure (exit code 1, no result line):
 
 1. device  - require CUDA; print the card's name and power limit (nvidia-smi).
-2. build   - compile K1 chol_inv, K2 mvn_ll and K3 tri_inv from
-             gprf_torch/csrc with nvcc for sm_90a.
+2. build   - compile K1 chol_inv, K2 mvn_ll, K3 tri_inv, K4 mvn_ll_inv and
+             K5 cholesky from gprf_torch/csrc for sm_90a, one nvcc per
+             source, all at once.
 3. kernels - each kernel against its plain PyTorch twin on the card, at the
              flagship shapes, forward and backward; median times of both.
-4. slice   - the flagship problem (synthetic n=10,000, 100 grid blocks
-             padded to m=136, 180 axis-only edges, dy=50, task=x): one
-             loss+grad with the kernels against the twins, then 2 dispatches
-             of 25 scan-L-BFGS steps; every launch counter must grow.
+             K5 takes K1's unary inputs and K4 takes K2's pair inputs.
+4. routes  - the flagship problem (synthetic n=10,000, 100 grid blocks
+             padded to m=136, 180 axis-only edges, dy=50, task=x) on each
+             route of the objective (ROUTES): one loss+grad with the
+             kernels against the same route on the twins, and each other
+             route against the default one; ms/eval of all six in turns.
+5. lbfgs   - per route, with the launch counters reset just before and read
+             just after: the default route runs 2 dispatches of 25
+             scan-L-BFGS steps, the other two one dispatch each from the
+             same start at m=136; each run must launch its route's kernels
+             and none that the route does not run.
 
 Output: a JSON line describing each kernel, the nvidia-smi line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -31,8 +40,23 @@ import numpy as np
 # Flagship problem (the workload bench.py times for the JAX package).
 N, NBLOCKS, DY = 10_000, 100, 50
 LSCALE, OBS_STD, NOISE_VAR = 0.06, 0.02, 0.01
-STEPS, DISPATCHES = 25, 2
+M0 = 136  # the flagship's padded block width
+STEPS = 25
 MAX_GROWTHS = 16  # capacity growths of 16 slots each before giving up
+
+# route -> (FusedGridGPRF options, L-BFGS dispatches, kernels its run must
+# launch, kernels it must not launch at m = 136)
+ROUTES = {
+    "default": (dict(mvn_inv=False, unary_doubling=False), 2,
+                ("chol_inv", "mvn_ll", "tri_inv"), ("mvn_ll_inv", "cholesky")),
+    "mvn_inv": (dict(mvn_inv=True, unary_doubling=False), 1,
+                ("chol_inv", "mvn_ll_inv"), ("tri_inv", "cholesky")),
+    "unary_doubling": (dict(mvn_inv=False, unary_doubling=True), 1,
+                       ("cholesky", "mvn_ll", "tri_inv"), ("chol_inv", "mvn_ll_inv")),
+}
+# the route whose L-BFGS run gives each kernel's launch count
+KERNEL_ROUTE = {"chol_inv": "default", "mvn_ll": "default", "tri_inv": "default",
+                "mvn_ll_inv": "mvn_inv", "cholesky": "unary_doubling"}
 
 # Tolerances, card against card in float32.  The pair Schur complements
 # carry kappa(K) up to ~1e4 (set by the 0.01 noise jitter under unit signal
@@ -88,17 +112,18 @@ def build_problem(torch, dev):
     cov = cov_from_numpy([1.0], [LSCALE, LSCALE], device=dev, dtype=torch.float32)
     fused = FusedGridGPRF(X_obs, Y, b.block_centers, edges, X_obs, OBS_STD, cov,
                           NOISE_VAR, device=dev, dtype=torch.float32)
-    if (fused.m, len(edges)) != (136, 180):
+    if (fused.m, len(edges)) != (M0, 180):
         raise AssertionError(f"flagship layout is m={fused.m}, E={len(edges)}; want 136, 180")
     return fused, X_obs
 
 
 def flagship_inputs(fused, x_flat, torch):
     """Each kernel's inputs as the main path gives them at the flagship
-    point, recorded from one loss on the twins: K1 the padded unary blocks
-    [100, 136, 136]; K2 the pair Schur complements [180, 136, 136], their
-    right-hand sides [180, 136, 50] and active counts [180]; K3 the pair
-    factors [180, 136, 136] that K2's backward inverts."""
+    point, recorded from one loss of the default route on the twins: K1 the
+    padded unary blocks [100, 136, 136]; K2 the pair Schur complements
+    [180, 136, 136], their right-hand sides [180, 136, 50] and active counts
+    [180]; K3 the pair factors [180, 136, 136] that K2's backward inverts.
+    K5 factors K1's blocks on its route and K4 takes K2's inputs on its."""
     from gprf_torch.ops import mvn
 
     seen = {}
@@ -115,6 +140,8 @@ def flagship_inputs(fused, x_flat, torch):
         fused.loss_fn()(x0)
     fused.ops = mvn.KERNEL_OPS
     seen["tri_inv"] = (mvn.mvn_ll_plain(*seen["mvn_ll"])[1],)
+    seen["mvn_ll_inv"] = seen["mvn_ll"]
+    seen["cholesky"] = seen["chol_inv"]
     return seen
 
 
@@ -140,6 +167,14 @@ def check_kernels(fused, x_flat, torch):
             source="gprf_torch/csrc/tri_inv.cu", replaces="gprf_tpu/ops/pallas_mvn.py:259",
             args=inputs["tri_inv"], kernel=mvn.tri_inv, plain=mvn.tri_inv_plain,
             fn=mvn.TriInv.apply, cot=lambda out: [randn_like(out[0])]),
+        "mvn_ll_inv": dict(
+            source="gprf_torch/csrc/mvn_inv.cu", replaces="gprf_tpu/ops/pallas_mvn.py:771",
+            args=inputs["mvn_ll_inv"], kernel=mvn.mvn_ll_inv, plain=mvn.mvn_ll_inv_plain,
+            fn=mvn.MvnLLInv.apply, cot=lambda out: [randn_like(out[0])]),
+        "cholesky": dict(
+            source="gprf_torch/csrc/chol.cu", replaces="gprf_tpu/ops/pallas_mvn.py:144",
+            args=inputs["cholesky"], kernel=mvn.cholesky, plain=mvn.cholesky_plain,
+            fn=mvn.Cholesky.apply, cot=lambda out: [randn_like(out[0])]),
     }
     report = {}
     for name, c in cases.items():
@@ -197,44 +232,73 @@ def eval_ms(losses, x0, torch, reps=20):
     return [statistics.median(t) for t in times]
 
 
-def run_slice(fused, x_flat, torch):
+def use_route(fused, route, ops):
+    """Point the fused engine at a route and at the kernels or the twins;
+    each loss made afterwards runs them."""
+    for k, v in ROUTES[route][0].items():
+        setattr(fused, k, v)
+    fused.ops = ops
+
+
+def agreement(vg, vg_ref):
+    """(loss rel, gradient cosine) of one loss+grad against another."""
+    (v, g), (v_ref, g_ref) = vg, vg_ref
+    loss_rel = abs(float(v) - float(v_ref)) / abs(float(v_ref))
+    g, g_ref = g.double(), g_ref.double()
+    return loss_rel, float(g @ g_ref / (g.norm() * g_ref.norm()))
+
+
+def check_routes(fused, x0, torch):
+    """Per route: one loss+grad on the kernels against the same route on the
+    twins, and against the default route on the kernels; then ms/eval of
+    every route on both, in turns."""
     from gprf_torch.ops import mvn
-    from gprf_torch.optim.lbfgs import value_and_grad, make_scan_lbfgs_runner
+    from gprf_torch.optim.lbfgs import value_and_grad
 
-    x0 = torch.as_tensor(x_flat, dtype=fused.dtype, device=fused.device)
+    fused.m = M0
+    losses, evals, report = [], {}, {}
+    for route in ROUTES:
+        for ops in (mvn.KERNEL_OPS, mvn.PLAIN_OPS):
+            use_route(fused, route, ops)
+            losses.append(fused.loss_fn())
+            evals[route, ops is mvn.KERNEL_OPS] = value_and_grad(losses[-1], x0)
+        report[route] = {"vs_twins": agreement(evals[route, True], evals[route, False])}
+        if route != "default":
+            report[route]["vs_default"] = agreement(evals[route, True], evals["default", True])
+        for against, (loss_rel, cosine) in report[route].items():
+            log(f"route {route}, kernels {against}: loss {float(evals[route, True][0]):.6f}, "
+                f"rel {loss_rel:.3e}, gradient cosine {cosine:.8f}")
+            if not (loss_rel <= RTOL_LOSS and cosine > MIN_GRAD_COSINE):
+                raise AssertionError(f"route {route} disagrees, {against}: loss rel "
+                                     f"{loss_rel:.3e}, cosine {cosine:.8f}")
+    ms = eval_ms(losses, x0, torch)
+    for i, route in enumerate(ROUTES):
+        report[route].update(ms_per_eval=ms[2 * i], plain_ms_per_eval=ms[2 * i + 1])
+        log(f"route {route} ms/eval (loss + grad, median of 20 in turns): kernels "
+            f"{ms[2 * i]:.3f}, twins {ms[2 * i + 1]:.3f}")
+    return report
 
-    # one loss+grad with the kernels against the same call on the twins
-    fused.ops = mvn.PLAIN_OPS
-    loss_plain = fused.loss_fn()
-    v_p, g_p = value_and_grad(loss_plain, x0)
-    fused.ops = mvn.KERNEL_OPS
-    loss = fused.loss_fn()
-    v_k, g_k = value_and_grad(loss, x0)
-    loss_rel = abs(float(v_k) - float(v_p)) / abs(float(v_p))
-    cosine = float(torch.dot(g_k.double(), g_p.double())
-                   / (g_k.double().norm() * g_p.double().norm()))
-    log(f"slice loss+grad kernels vs twins: loss {float(v_k):.6f} vs {float(v_p):.6f} "
-        f"(rel {loss_rel:.3e}), gradient cosine {cosine:.8f}")
-    if not (loss_rel <= RTOL_LOSS and cosine > MIN_GRAD_COSINE):
-        raise AssertionError(f"slice disagrees with the twin path: loss rel {loss_rel:.3e}, "
-                             f"cosine {cosine:.8f}")
-    ms_kernel, ms_plain = eval_ms([loss, loss_plain], x0, torch)
-    log(f"slice ms/eval (loss + grad, median of 20 in turns): kernels {ms_kernel:.3f}, "
-        f"twins {ms_plain:.3f}")
 
-    # the main path: scan-L-BFGS over the fused loss, counted.  A dispatch
-    # whose end points overflow the capacity m (a block outgrew its slots,
-    # so some steps dropped points) is run again at a grown capacity, as
-    # FusedGridGPRF.value_and_grad re-evaluates a single step: the kept
-    # trajectory never dropped a point.
+def run_lbfgs(fused, x0, route, torch):
+    """The main path on one route: scan-L-BFGS over the fused loss from x0
+    at m = 136, counted.  A dispatch whose end points overflow the capacity
+    m (a block outgrew its slots, so some steps dropped points) is run again
+    at a grown capacity, as FusedGridGPRF.value_and_grad re-evaluates a
+    single step: the kept trajectory never dropped a point."""
+    from gprf_torch.ops import mvn
+    from gprf_torch.optim.lbfgs import make_scan_lbfgs_runner
+
+    _, dispatches, must, must_not = ROUTES[route]
+    use_route(fused, route, mvn.KERNEL_OPS)
+    fused.m = M0
     torch.cuda.synchronize()
     mvn.reset_launch_counts()
     t0 = time.perf_counter()
-    init_fn, run_fn = make_scan_lbfgs_runner(loss, num_steps=STEPS,
+    init_fn, run_fn = make_scan_lbfgs_runner(fused.loss_fn(), num_steps=STEPS,
                                              aux_fn=fused.overflow_fn())
     carry = init_fn(x0)
     values, capacities, first_dispatch_s = [], [], None
-    for _ in range(DISPATCHES):
+    for _ in range(dispatches):
         while True:
             t_d = time.perf_counter()
             out, (v, _, _, overflow) = run_fn(carry)
@@ -257,18 +321,22 @@ def run_slice(fused, x_flat, torch):
     values = torch.cat(values).double().cpu().numpy()
     v0 = float(values[0])
     ms_iter = first_dispatch_s / STEPS * 1e3
-    log(f"scan-L-BFGS: {DISPATCHES} x {STEPS} steps kept, {wall:.3f} s in all; first "
-        f"dispatch (m=136) {ms_iter:.3f} ms/iter; capacity grown to {capacities or 'none'}; "
-        f"objective {v0:.4f} -> {float(values[-1]):.4f}; launches {launches}")
+    log(f"scan-L-BFGS, route {route}: {dispatches} x {STEPS} steps kept, {wall:.3f} s in all; "
+        f"first dispatch (m={M0}) {ms_iter:.3f} ms/iter; capacity grown to "
+        f"{capacities or 'none'}; objective {v0:.4f} -> {float(values[-1]):.4f}; "
+        f"launches {launches}")
     if not np.isfinite(values).all():
-        raise AssertionError(f"non-finite L-BFGS values: {values}")
+        raise AssertionError(f"non-finite L-BFGS values on route {route}: {values}")
     if not values[-1] < v0:
-        raise AssertionError(f"objective did not decrease: {v0} -> {values[-1]}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"the main path skipped a kernel: launches {launches}")
-    return launches, dict(ms_per_eval=ms_kernel, plain_ms_per_eval=ms_plain,
-                          lbfgs_ms_per_iter=ms_iter, lbfgs_values=[v0, float(values[-1])],
-                          capacity_growths=capacities)
+        raise AssertionError(f"objective did not decrease on route {route}: {v0} -> {values[-1]}")
+    skipped = [k for k in must if launches[k] < 1]
+    stray = [k for k in must_not if launches[k] != 0]
+    if skipped or stray:
+        raise AssertionError(f"route {route} skipped {skipped} or launched {stray}: "
+                             f"launches {launches}")
+    return dict(lbfgs_dispatches=dispatches, lbfgs_ms_per_iter=ms_iter,
+                lbfgs_values=[v0, float(values[-1])], capacity_growths=capacities,
+                launches=launches)
 
 
 def main():
@@ -296,14 +364,17 @@ def main():
     fused, X_obs = build_problem(torch, dev)
     x_flat = X_obs.reshape(-1)
     report = check_kernels(fused, x_flat, torch)
-    launches, slice_report = run_slice(fused, x_flat, torch)
-    for name, n in launches.items():
-        report[name]["launches"] = n
+    x0 = torch.as_tensor(x_flat, dtype=fused.dtype, device=fused.device)
+    routes = check_routes(fused, x0, torch)
+    for route in ROUTES:
+        routes[route].update(run_lbfgs(fused, x0, route, torch))
+    for name, route in KERNEL_ROUTE.items():
+        report[name]["launches"] = routes[route]["launches"][name]
 
     print(json.dumps({
         "kernels": list(report.values()),
-        "slice": {"n": N, "blocks": NBLOCKS, "m": 136, "edges": int(fused.edges.shape[0]),
-                  "dy": DY, **slice_report},
+        "slice": {"n": N, "blocks": NBLOCKS, "m": M0, "edges": int(fused.edges.shape[0]),
+                  "dy": DY, "routes": routes},
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -62,7 +62,10 @@ class FusedSyntheticGPRF:
     the locations stay at X0.
 
     ``ops`` picks the leaf primitives: the kernels (default) or their plain
-    twins under PyTorch's autograd, for comparison.
+    twins under PyTorch's autograd, for comparison.  ``mvn_inv`` and
+    ``unary_doubling`` pick a route of the objective
+    (:mod:`gprf_torch.model.objective`); both default off.  Like ``ops``,
+    they are attributes that each new loss reads when it is made.
     """
 
     COV_SCALE = 5.0
@@ -70,7 +73,7 @@ class FusedSyntheticGPRF:
     def __init__(self, X0, Y, edges, X_obs, obs_std, cov: GPCov, noise_var,
                  task: str = "x", C0=None, centers=None, rpc_tree=None, m=None, *,
                  device: torch.device | str, dtype: torch.dtype, acc_dtype=None,
-                 ops: Ops = KERNEL_OPS):
+                 ops: Ops = KERNEL_OPS, mvn_inv: bool = False, unary_doubling: bool = False):
         if task not in ("x", "cov", "xcov"):
             raise ValueError(f"unknown task {task!r}")
         if rpc_tree is not None:
@@ -82,6 +85,8 @@ class FusedSyntheticGPRF:
         self.dtype = dtype
         self.acc_dtype = acc_dtype
         self.ops = ops
+        self.mvn_inv = mvn_inv
+        self.unary_doubling = unary_doubling
         self.Y = torch.tensor(np.asarray(Y), dtype=dtype, device=device)
         self.X0 = np.asarray(X0, dtype=np.float64)
         self.shape = self.X0.shape
@@ -189,6 +194,7 @@ class FusedSyntheticGPRF:
         cov_scale, obs_std = self.COV_SCALE, self.obs_std
         X_fixed = torch.as_tensor(self.X0, dtype=dtype, device=dev)
         acc_dtype, ops = self.acc_dtype, self.ops
+        routes = dict(mvn_inv=self.mvn_inv, unary_doubling=self.unary_doubling)
 
         def objective(theta):
             X, nflat = self._unpack(theta, X_fixed)
@@ -212,7 +218,7 @@ class FusedSyntheticGPRF:
             ll = gprf_ll_schur(
                 params, self.Y, assignment, mask, self.edges, self.unary_weights,
                 self.pair_weights, dfn_str=base_cov.dfn_str, wfn_str=base_cov.wfn_str,
-                acc_dtype=acc_dtype, ops=ops,
+                acc_dtype=acc_dtype, ops=ops, **routes,
             )
             if task in ("x", "xcov"):
                 r = (X.reshape(-1) - self.X_obs_flat) / obs_std
@@ -238,10 +244,12 @@ class FusedGridGPRF(FusedSyntheticGPRF):
 
     def __init__(self, X0, Y, centers, edges, X_obs, obs_std, cov: GPCov, noise_var,
                  m=None, *, device: torch.device | str, dtype: torch.dtype,
-                 acc_dtype=None, ops: Ops = KERNEL_OPS):
+                 acc_dtype=None, ops: Ops = KERNEL_OPS, mvn_inv: bool = False,
+                 unary_doubling: bool = False):
         super().__init__(X0, Y, edges, X_obs, obs_std, cov, noise_var, task="x",
                          centers=centers, m=m, device=device, dtype=dtype,
-                         acc_dtype=acc_dtype, ops=ops)
+                         acc_dtype=acc_dtype, ops=ops, mvn_inv=mvn_inv,
+                         unary_doubling=unary_doubling)
 
     def value_and_grad(self, x_flat):
         """(nll, ngrad) as a float and a float64 numpy array; grows the

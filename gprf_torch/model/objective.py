@@ -12,9 +12,20 @@ so the unary pass runs K1 (chol_inv) over all blocks, and the pair pass
 runs K2 (mvn_ll) over every Schur complement, both through the split
 compositions of :mod:`gprf_torch.ops.split_mvn`.  Every "solve" is then a
 batched matrix product with the explicit inverse factor, which the noise
-jitter keeps well conditioned.  Gradients with respect to X, the kernel
-hyperparameters and the noise variance come from autograd through the
-kernels' analytic backward passes.
+jitter keeps well conditioned.
+
+Two routes of the reference run other kernels; each is an explicit option
+(the reference reads them from the environment):
+
+- ``mvn_inv`` (``GPRF_MVN_INV``): every MVN leaf that K4 takes runs
+  mvn_ll_inv, which also returns W = L^-1 and L^-1 Y, so the pair
+  backward is products only and launches no K3.
+- ``unary_doubling`` (``GPRF_UNARY_DOUBLING``): the unary factors come from
+  K5 (cholesky, m <= 240, no split) and their inverses from the
+  recursive-doubling :func:`gprf_torch.linalg.doubling.batched_tri_inv_doubling`.
+
+Gradients with respect to X, the kernel hyperparameters and the noise
+variance come from autograd through the kernels' analytic backward passes.
 
 All float32 products run at full precision (``gprf_torch`` pins TF32
 off): the Schur complement must stay numerically positive definite.
@@ -29,6 +40,7 @@ import torch
 
 from gprf_torch.kernels.covfn import cross_kernel_matrix
 from gprf_torch.kernels.gpcov import GPCov
+from gprf_torch.linalg.doubling import batched_tri_inv_doubling
 from gprf_torch.linalg.masked import pad_kernel_matrix
 from gprf_torch.ops.mvn import KERNEL_OPS, Ops
 from gprf_torch.ops.split_mvn import chol_inv_split, mvn_ll_split
@@ -46,11 +58,13 @@ class GPRFParams(NamedTuple):
 
 
 def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
-              cov: GPCov, noise_var, acc_dtype=None, ops: Ops = KERNEL_OPS):
+              cov: GPCov, noise_var, acc_dtype=None, ops: Ops = KERNEL_OPS,
+              mvn_inv: bool = False, unary_doubling: bool = False):
     """GPRF log-likelihood with the pair terms factored through the unary
     inverse factors.  ``acc_dtype`` (default: X's dtype) accumulates the
     scalar tails: the per-block quadratic forms, log-determinants and the
-    weighted block sums."""
+    weighted block sums.  ``mvn_inv`` and ``unary_doubling`` pick the
+    routes of the module docstring."""
     dtype = X.dtype
     acc = dtype if acc_dtype is None else acc_dtype
     dy = Y.shape[-1]
@@ -59,7 +73,7 @@ def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
     maskf = mask.to(dtype)
     eye = torch.eye(m, dtype=dtype, device=X.device)
 
-    # ---- unary pass: K1 over every block
+    # ---- unary pass: K1 over every block (K5 + doubling on that route)
     # index_select, not X[assignment]: its backward is an index_add, where
     # advanced indexing's is a sort-based index_put that took ~0.6 ms of a
     # flagship evaluation on the H100 (it sums in another order, so the X
@@ -67,7 +81,11 @@ def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
     Xb = X.index_select(0, assignment.reshape(-1)).reshape(*assignment.shape, X.shape[-1])
     Kp = pad_kernel_matrix(cross_kernel_matrix(cov, Xb, Xb) + noise_var * eye, mask)
     Ym = Y[assignment] * maskf[:, :, None]
-    Ls, Ws = chol_inv_split(Kp, ops=ops)
+    if unary_doubling:
+        Ls = ops.cholesky(Kp)
+        Ws = batched_tri_inv_doubling(Ls)
+    else:
+        Ls, Ws = chol_inv_split(Kp, ops=ops)
     Zs = Ws @ Ym
     quads = torch.sum((Zs * Zs).to(acc), dim=(1, 2))
     logdets = 2.0 * torch.sum(torch.log(torch.diagonal(Ls, dim1=1, dim2=2)).to(acc), dim=1)
@@ -77,7 +95,7 @@ def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
     if edges.shape[0] == 0:
         return total
 
-    # ---- pair pass: K2 over every Schur complement against the i-side factor
+    # ---- pair pass: K2 (or K4) over every Schur complement against the i-side factor
     ei = edges[:, 0].long()
     ej = edges[:, 1].long()
     Kij = cross_kernel_matrix(cov, Xb[ei], Xb[ej])
@@ -88,19 +106,22 @@ def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
     S = Kp[ej] - Bm.mT @ Bm
     rhs = Ym[ej] - Bm.mT @ Zs[ei]
     nbj = torch.sum(maskf[ej], dim=1)
-    pair_ll = unary_ll[ei] + mvn_ll_split(S, rhs, nbj, ops=ops).to(acc)
+    pair_ll = unary_ll[ei] + mvn_ll_split(S, rhs, nbj, ops=ops, mvn_inv=mvn_inv).to(acc)
     return total + torch.sum(pair_weights.to(acc) * pair_ll)
 
 
 def gprf_ll_schur(params: GPRFParams, Y, assignment, mask, edges, unary_weights,
                   pair_weights, dfn_str: str = "euclidean", wfn_str: str = "se",
-                  acc_dtype=None, ops: Ops = KERNEL_OPS):
+                  acc_dtype=None, ops: Ops = KERNEL_OPS, mvn_inv: bool = False,
+                  unary_doubling: bool = False):
     """Scalar GPRF log-likelihood via the Schur-complement pair form.
 
     ``assignment``/``mask`` are the padded [B, m] block layout, ``edges``
     the [E, 2] block pairs, and the weights the per-term combination
-    weights (1 - |E_i| for blocks, 1 for pairs)."""
+    weights (1 - |E_i| for blocks, 1 for pairs).  ``mvn_inv`` and
+    ``unary_doubling`` pick a route (module docstring); both default off."""
     cov = GPCov(wfn_params=params.wfn_params, dfn_params=params.dfn_params,
                 dfn_str=dfn_str, wfn_str=wfn_str)
     return _schur_ll(params.X, Y, assignment, mask, edges, unary_weights, pair_weights,
-                     cov, params.noise_var, acc_dtype=acc_dtype, ops=ops)
+                     cov, params.noise_var, acc_dtype=acc_dtype, ops=ops, mvn_inv=mvn_inv,
+                     unary_doubling=unary_doubling)

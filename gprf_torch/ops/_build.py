@@ -2,11 +2,13 @@
 
 The sources have a plain C interface, so ``nvcc`` compiles them straight
 into one shared library (seconds, where a build that includes PyTorch's
-headers takes minutes) and :mod:`ctypes` binds it.  The library is built at
-first use into ``gprf_torch/csrc/build/<hash>/``, keyed on a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads.
-Nothing here runs at import: this module is imported on machines with no
-CUDA toolkit.
+headers takes minutes) and :mod:`ctypes` binds it.  Each ``.cu`` file is
+compiled by its own ``nvcc`` process, all started together, and the objects
+are then linked.  The library is built at first use into
+``gprf_torch/csrc/build/<hash>/``, keyed on a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one loads.  Nothing
+here runs at import: this module is imported on machines with no CUDA
+toolkit.
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC / "build"
+# compile flags of each source; the objects are linked with -shared
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -35,6 +38,8 @@ SIGNATURES = {
     "gprf_chol_inv": (_P, _P, _P, _I, _I, _P),
     "gprf_mvn_ll": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gprf_tri_inv": (_P, _P, _I, _I, _P),
+    "gprf_mvn_ll_inv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "gprf_cholesky": (_P, _P, _I, _I, _P),
 }
 
 
@@ -42,7 +47,7 @@ SIGNATURES = {
 class Built:
     lib: ctypes.CDLL
     path: Path
-    seconds: float  # compile time; 0.0 when the library was already built
+    seconds: float  # compile and link time; 0.0 when the library was already built
     log: str  # nvcc's output (register and shared-memory use per kernel)
 
 
@@ -59,6 +64,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _compile(nvcc: str, srcs: list[Path], out_dir: Path) -> tuple[list[Path], str]:
+    """One nvcc process per source, all running at once; raises if any fails."""
+    tag = os.getpid()
+    jobs = []
+    for p in srcs:
+        obj = out_dir / f"{p.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(p)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [obj for _, obj, _ in jobs], "".join(log)
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> Built:
     """Build (if needed) and load the kernel library; raises on failure."""
@@ -72,16 +97,20 @@ def load() -> Built:
     seconds, log = 0.0, ""
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f".libgprf_kernels.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in srcs if p.suffix == ".cu"]]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
+        objs, log = _compile(nvcc, [p for p in srcs if p.suffix == ".cu"], out_dir)
+        tmp = out_dir / f".libgprf_kernels.{os.getpid()}.so"
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", str(tmp), *map(str, objs)]
         r = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
-        log = r.stdout + r.stderr
+        log += r.stdout + r.stderr
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n{log}")
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{' '.join(cmd)}\n{log}")
         os.replace(tmp, so)  # atomic: concurrent builders never load a partial file
+        for obj in objs:
+            obj.unlink()
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,18 +1,23 @@
-"""The three batched Cholesky kernels of the GPRF hot loop, with their plain
+"""The five batched Cholesky kernels of the GPRF objective, with their plain
 PyTorch twins and analytic backward passes.
 
-    K1  chol_inv(K)            -> (L, W = L^-1)      csrc/chol_inv.cu
-    K2  mvn_ll(Kp, Ym, n_act)  -> (ll [B], L)        csrc/mvn.cu
-    K3  tri_inv(L)             -> W = L^-1           csrc/tri_inv.cu
+    K1  chol_inv(K)                -> (L, W = L^-1)              csrc/chol_inv.cu
+    K2  mvn_ll(Kp, Ym, n_act)      -> (ll [B], L)                csrc/mvn.cu
+    K3  tri_inv(L)                 -> W = L^-1                   csrc/tri_inv.cu
+    K4  mvn_ll_inv(Kp, Ym, n_act)  -> (ll [B], W, Z = L^-1 Ym)   csrc/mvn_inv.cu
+    K5  cholesky(K)                -> L                          csrc/chol.cu
+
+K1-K3 carry the default route of the objective; K4 the MVN+inverse route
+and K5 the unary-doubling route (:mod:`gprf_torch.model.objective`).
 
 Each wrapper runs its hand-written CUDA kernel on a CUDA tensor and its
 plain twin (``*_plain``) on a CPU tensor; any other input raises.  The
-``autograd.Function``s (:class:`CholInv`, :class:`MvnLL`, :class:`TriInv`)
-have one forward, through the wrapper, and one analytic backward written
-as batched matrix products, the pullbacks of the TPU kernels' custom VJPs
-(``gprf_tpu/ops/pallas_mvn.py``).  Their K-cotangents are symmetrized: K is
-always a symmetric function of the inputs, so end-to-end gradients equal
-autodiff's.
+``autograd.Function``s (:class:`CholInv`, :class:`MvnLL`, :class:`TriInv`,
+:class:`MvnLLInv`, :class:`Cholesky`) have one forward, through the
+wrapper, and one analytic backward written as batched matrix products, the
+pullbacks of the TPU kernels' custom VJPs (``gprf_tpu/ops/pallas_mvn.py``).
+Their K-cotangents are symmetrized: K is always a symmetric function of the
+inputs, so end-to-end gradients equal autodiff's.
 
 :data:`KERNEL_OPS` (the Functions) and :data:`PLAIN_OPS` (the twins under
 PyTorch's own autograd) let a caller run the same composition on either,
@@ -38,6 +43,8 @@ _F32 = 4
 MAX_M_CHOL_INV = 168
 # K3 holds L and the running inverse: 2 m^2 floats.
 MAX_M_TRI_INV = 168
+# K5 holds K and one column: (m^2 + m) floats.
+MAX_M_CHOL = 240
 # K2's static shared memory (per-warp partial sums of the quadratic form).
 _MVN_STATIC_BYTES = 16 * _F32
 # K2 keeps each lane's slice of a row of Y in registers: dy <= 8 * 32.
@@ -58,9 +65,22 @@ def mvn_max_m(dy: int) -> int:
     return m
 
 
+def mvn_inv_smem_bytes(m: int, dy: int) -> int:
+    """K4's shared memory: K, the running inverse, Y and one column."""
+    return (2 * m * m + m * dy + m) * _F32 + _MVN_STATIC_BYTES
+
+
+def mvn_inv_supported(m: int, dy: int) -> bool:
+    """Whether K4 takes (m, dy): its working set fits the CTA's shared
+    memory (m <= 158 at the flagship dy = 50) and dy <= 256.  The MVN
+    leaves of :func:`gprf_torch.ops.split_mvn.mvn_ll_split` gate on it on
+    every device, so the CPU and the card take the same route."""
+    return dy <= MAX_DY_MVN and mvn_inv_smem_bytes(m, dy) <= SMEM_BYTES
+
+
 # Kernel launches per wrapper since the last reset.  Only a launch of the
 # CUDA kernel counts; the twin never does.
-launch_counts = {"chol_inv": 0, "mvn_ll": 0, "tri_inv": 0}
+launch_counts = {"chol_inv": 0, "mvn_ll": 0, "tri_inv": 0, "mvn_ll_inv": 0, "cholesky": 0}
 
 
 def reset_launch_counts() -> None:
@@ -85,14 +105,29 @@ def chol_inv_plain(K):
     return L, tri_inv_plain(L)
 
 
-def mvn_ll_plain(Kp, Ym, n_active):
+def cholesky_plain(K):
+    return cholesky_nan(K)
+
+
+def _mvn_plain(Kp, Ym, n_active):
+    """(ll, L, Z = L^-1 Ym) by the library factorization."""
     dy = Ym.shape[-1]
     L = cholesky_nan(Kp)
     z = torch.linalg.solve_triangular(L, Ym, upper=False)
     quad = torch.sum(z * z, dim=(-2, -1))
     logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
     ll = -0.5 * quad - 0.5 * dy * logdet - 0.5 * dy * n_active.to(Kp.dtype) * LOG_2PI
+    return ll, L, z
+
+
+def mvn_ll_plain(Kp, Ym, n_active):
+    ll, L, _ = _mvn_plain(Kp, Ym, n_active)
     return ll, L
+
+
+def mvn_ll_inv_plain(Kp, Ym, n_active):
+    ll, L, z = _mvn_plain(Kp, Ym, n_active)
+    return ll, tri_inv_plain(L), z
 
 
 # ---- kernel wrappers ---------------------------------------------------------
@@ -204,6 +239,59 @@ def tri_inv(L):
     return W
 
 
+def mvn_ll_inv(Kp, Ym, n_active):
+    """K4: (ll [B], W = L^-1, Z = L^-1 Ym) for padded-masked Kp [B, m, m],
+    zero-padded Ym [B, m, dy] and active counts [B], where (m, dy) pass
+    :func:`mvn_inv_supported`.
+
+    Replaces ``_mvn_inv_kernel`` (gprf_tpu/ops/pallas_mvn.py).  Bound, like
+    K2, by m sequential steps of shared-memory row updates; K1's folded
+    substitution for W shares K2's k-loop, so one pass over K gives ll and
+    both residuals of the backward pass, and L never leaves the SM
+    (csrc/mvn_inv.cu)."""
+    if _on_cpu(Kp, Ym, n_active):
+        return mvn_ll_inv_plain(Kp, Ym, n_active)
+    B, m = _square_batch("mvn_ll_inv", Kp)
+    dy = Ym.shape[-1]
+    _check("mvn_ll_inv", Kp, (B, m, m))
+    _check("mvn_ll_inv", Ym, (B, m, dy))
+    _check("mvn_ll_inv", n_active, (B,))
+    if not mvn_inv_supported(m, dy):
+        raise ValueError(f"mvn_ll_inv: (m={m}, dy={dy}) exceeds the kernel's shared memory "
+                         "or dy cap; gate on mvn_inv_supported and use mvn_ll")
+    ll = torch.empty((B,), dtype=Kp.dtype, device=Kp.device)
+    W = torch.empty_like(Kp)
+    Z = torch.empty_like(Ym)
+    if B:
+        with torch.cuda.device(Kp.device):
+            _build.call("gprf_mvn_ll_inv", Kp.data_ptr(), Ym.data_ptr(), n_active.data_ptr(),
+                        ll.data_ptr(), W.data_ptr(), Z.data_ptr(), B, m, dy, _stream(Kp))
+        launch_counts["mvn_ll_inv"] += 1
+    return ll, W, Z
+
+
+def cholesky(K):
+    """K5: lower Cholesky factor L of SPD [B, m, m], m <= 240.
+
+    Replaces ``_chol_kernel`` (gprf_tpu/ops/pallas_mvn.py).  Bound, like
+    K1, by m sequential steps of shared-memory row updates; it is K1's
+    k-loop without the substitution, one CTA per matrix holding K and one
+    column (csrc/chol.cu).  Above its cap it raises, where the TPU
+    pipeline falls back to XLA's Cholesky without a word."""
+    if _on_cpu(K):
+        return cholesky_plain(K)
+    B, m = _square_batch("cholesky", K)
+    _check("cholesky", K, (B, m, m))
+    if m > MAX_M_CHOL:
+        raise ValueError(f"cholesky: m={m} exceeds the kernel's cap {MAX_M_CHOL}")
+    L = torch.empty_like(K)
+    if B:
+        with torch.cuda.device(K.device):
+            _build.call("gprf_cholesky", K.data_ptr(), L.data_ptr(), B, m, _stream(K))
+        launch_counts["cholesky"] += 1
+    return L
+
+
 # ---- autograd ----------------------------------------------------------------
 
 
@@ -214,6 +302,25 @@ def _sym(A):
 def _w_cotangent(W, dW):
     """d(L^-1) = -L^-1 dL L^-1  =>  dL = -W^T dW W^T (lower part used)."""
     return -(W.mT @ dW @ W.mT)
+
+
+def _chol_pullback(L, W, dL):
+    """The Cholesky pullback with K^-1 through W = L^-1:
+    dK = sym(W^T sym(phi) W), phi = tril(L^T dL) - diag(L^T dL) / 2."""
+    P = L.mT @ dL
+    phi = torch.tril(P) - 0.5 * torch.diag_embed(torch.diagonal(P, dim1=-2, dim2=-1))
+    return _sym(W.mT @ _sym(phi) @ W)
+
+
+def _mvn_pullback(W, Z, g, needs_nact):
+    """(dK, dY, d n_active) of the masked MVN from W = L^-1 and Z = L^-1 Y:
+    alpha = W^T Z, dK = g/2 (alpha alpha^T - dy W^T W), dY = -g alpha."""
+    dy = Z.shape[-1]
+    alpha = W.mT @ Z
+    gb = g[:, None, None]
+    dK = gb * 0.5 * (alpha @ alpha.mT - dy * (W.mT @ W))
+    d_nact = -0.5 * dy * LOG_2PI * g if needs_nact else None
+    return dK, -gb * alpha, d_nact
 
 
 class CholInv(torch.autograd.Function):
@@ -229,10 +336,7 @@ class CholInv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dL, dW):
         L, W = ctx.saved_tensors
-        dLt = torch.tril(dL + _w_cotangent(W, dW))
-        P = L.mT @ dLt
-        phi = torch.tril(P) - 0.5 * torch.diag_embed(torch.diagonal(P, dim1=-2, dim2=-1))
-        return _sym(W.mT @ _sym(phi) @ W)
+        return _chol_pullback(L, W, torch.tril(dL + _w_cotangent(W, dW)))
 
 
 class MvnLL(torch.autograd.Function):
@@ -252,13 +356,8 @@ class MvnLL(torch.autograd.Function):
         from gprf_torch.ops.split_mvn import tri_inv_split
 
         L, Ym = ctx.saved_tensors
-        dy = Ym.shape[-1]
         W = tri_inv_split(L)
-        alpha = W.mT @ (W @ Ym)
-        gb = g[:, None, None]
-        dK = gb * 0.5 * (alpha @ alpha.mT - dy * (W.mT @ W))
-        d_nact = -0.5 * dy * LOG_2PI * g if ctx.needs_input_grad[2] else None
-        return dK, -gb * alpha, d_nact
+        return _mvn_pullback(W, W @ Ym, g, ctx.needs_input_grad[2])
 
 
 class TriInv(torch.autograd.Function):
@@ -276,21 +375,63 @@ class TriInv(torch.autograd.Function):
         return torch.tril(_w_cotangent(W, dW))
 
 
+class MvnLLInv(torch.autograd.Function):
+    """ll = K4(Kp, Ym, n_active), with the products-only pullback of
+    ``_mvn_inv_bwd`` from the saved W and Z: no K3 in the backward."""
+
+    @staticmethod
+    def forward(ctx, Kp, Ym, n_active):
+        ll, W, Z = mvn_ll_inv(Kp.contiguous(), Ym.contiguous(),
+                              n_active.to(Kp.dtype).contiguous())
+        ctx.save_for_backward(W, Z)
+        return ll
+
+    @staticmethod
+    def backward(ctx, g):
+        W, Z = ctx.saved_tensors
+        return _mvn_pullback(W, Z, g, ctx.needs_input_grad[2])
+
+
+class Cholesky(torch.autograd.Function):
+    """L = K5(K), with the pullback of ``_chol_bwd``: W = L^-1 from K3
+    (through ``tri_inv_split``), then the Cholesky pullback."""
+
+    @staticmethod
+    def forward(ctx, K):
+        L = cholesky(K.contiguous())
+        ctx.save_for_backward(L)
+        return L
+
+    @staticmethod
+    def backward(ctx, dL):
+        from gprf_torch.ops.split_mvn import tri_inv_split
+
+        (L,) = ctx.saved_tensors
+        return _chol_pullback(L, tri_inv_split(L), dL)
+
+
 class Ops(NamedTuple):
-    """The three leaf primitives a composition runs on."""
+    """The leaf primitives a composition runs on.  The last two default to
+    the kernels, so a caller may name only the first three."""
 
     chol_inv: Callable  # K -> (L, W)
     mvn_ll: Callable  # (Kp, Ym, n_active) -> ll
     tri_inv: Callable  # L -> W
+    mvn_ll_inv: Callable = MvnLLInv.apply  # (Kp, Ym, n_active) -> ll
+    cholesky: Callable = Cholesky.apply  # K -> L
 
 
 KERNEL_OPS = Ops(
     chol_inv=CholInv.apply,
     mvn_ll=MvnLL.apply,
     tri_inv=TriInv.apply,
+    mvn_ll_inv=MvnLLInv.apply,
+    cholesky=Cholesky.apply,
 )
 PLAIN_OPS = Ops(
     chol_inv=chol_inv_plain,
     mvn_ll=lambda Kp, Ym, n_active: mvn_ll_plain(Kp, Ym, n_active)[0],
     tri_inv=tri_inv_plain,
+    mvn_ll_inv=lambda Kp, Ym, n_active: mvn_ll_inv_plain(Kp, Ym, n_active)[0],
+    cholesky=cholesky_plain,
 )

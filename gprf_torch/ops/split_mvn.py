@@ -23,7 +23,14 @@ from __future__ import annotations
 
 import torch
 
-from gprf_torch.ops.mvn import KERNEL_OPS, MAX_M_CHOL_INV, MAX_M_TRI_INV, Ops, mvn_max_m
+from gprf_torch.ops.mvn import (
+    KERNEL_OPS,
+    MAX_M_CHOL_INV,
+    MAX_M_TRI_INV,
+    Ops,
+    mvn_inv_supported,
+    mvn_max_m,
+)
 
 LEAF_CHOL = MAX_M_CHOL_INV
 LEAF_TRI = MAX_M_TRI_INV
@@ -74,16 +81,21 @@ def tri_inv_split(L, leaf: int | None = None, ops: Ops = KERNEL_OPS):
 
 
 def mvn_ll_split(Kp, Ym, n_active, leaf_mvn: int | None = None,
-                 leaf_chol: int | None = None, ops: Ops = KERNEL_OPS):
+                 leaf_chol: int | None = None, ops: Ops = KERNEL_OPS, mvn_inv: bool = False):
     """Masked Gaussian log-density [B] (the contract of ``mvn_ll``) via the
     Schur split:
 
         ll = [-1/2 |Wa Y1|^2 - dy/2 logdet A] + MVN(C', Y2 - L21 Wa Y1, n_active)
-    """
+
+    ``mvn_inv`` sends each MVN leaf that K4 takes (:func:`mvn_inv_supported`)
+    to ``ops.mvn_ll_inv``, whose backward needs no triangular inverse; the
+    other leaves stay on ``ops.mvn_ll``."""
     m = Kp.shape[-1]
     dy = Ym.shape[-1]
     leaf_mvn = mvn_max_m(dy) if leaf_mvn is None else leaf_mvn
     if m <= leaf_mvn:
+        if mvn_inv and mvn_inv_supported(m, dy):
+            return ops.mvn_ll_inv(Kp, Ym, n_active)
         return ops.mvn_ll(Kp, Ym, n_active)
     h = split_point(m)
     A, K21, C = _blocks(Kp, h)
@@ -93,5 +105,5 @@ def mvn_ll_split(Kp, Ym, n_active, leaf_mvn: int | None = None,
     rhs2 = Ym[:, h:, :] - L21 @ z1
     quad1 = torch.sum(z1 * z1, dim=(1, 2))
     logdet1 = 2.0 * torch.sum(torch.log(torch.diagonal(La, dim1=1, dim2=2)), dim=1)
-    ll2 = mvn_ll_split(C - L21 @ L21.mT, rhs2, n_active, leaf_mvn, leaf_chol, ops)
+    ll2 = mvn_ll_split(C - L21 @ L21.mT, rhs2, n_active, leaf_mvn, leaf_chol, ops, mvn_inv)
     return ll2 - 0.5 * quad1 - 0.5 * dy * logdet1

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import gprf_torch  # noqa: F401  (precision pins)
+from gprf_torch.linalg.doubling import batched_tri_inv_doubling
 from gprf_torch.ops import mvn
 from gprf_torch.ops.split_mvn import chol_inv_split, mvn_ll_split, tri_inv_split
 
@@ -86,13 +87,47 @@ def test_mvn_kernel(dev, B, m, dy):
     _close(L, L_ref)
 
 
+@pytest.mark.parametrize("B,m", [(3, 37), (5, 136), (2, 240), (1, 1), (4, 65)])
+def test_cholesky_kernel(dev, B, m):
+    rng = np.random.default_rng(m)
+    K = torch.as_tensor(_spd(rng, B, m, rng.integers(m // 2, m + 1, size=B)), device=dev)
+    mvn.reset_launch_counts()
+    L = mvn.cholesky(K.float())
+    torch.cuda.synchronize()
+    assert mvn.launch_counts["cholesky"] == 1
+    _close(L, mvn.cholesky_plain(K))
+    assert torch.all(torch.triu(L, 1) == 0)
+
+
+@pytest.mark.parametrize("B,m,dy", [(3, 37, 5), (9, 136, 50), (2, 158, 50), (4, 40, 1),
+                                    (2, 169, 1), (3, 40, 200), (1, 1, 3)])
+def test_mvn_inv_kernel(dev, B, m, dy):
+    rng = np.random.default_rng(m + dy)
+    n_active = rng.integers(m // 2, m + 1, size=B)
+    K = torch.as_tensor(_spd(rng, B, m, n_active), device=dev)
+    mask = torch.as_tensor(np.arange(m)[None, :] < n_active[:, None], device=dev)
+    Y = torch.as_tensor(rng.normal(size=(B, m, dy)), device=dev) * mask[:, :, None]
+    na = torch.as_tensor(n_active, dtype=torch.float64, device=dev)
+    mvn.reset_launch_counts()
+    ll, W, Z = mvn.mvn_ll_inv(K.float(), Y.float(), na.float())
+    torch.cuda.synchronize()
+    assert mvn.launch_counts["mvn_ll_inv"] == 1
+    for got, ref in zip((ll, W, Z), mvn.mvn_ll_inv_plain(K, Y, na)):
+        _close(got, ref)
+    assert torch.all(torch.triu(W, 1) == 0)
+
+
 def test_empty_batch_launches_nothing(dev):
     K = torch.zeros(0, 8, 8, device=dev)
     mvn.reset_launch_counts()
     assert mvn.chol_inv(K)[0].shape == (0, 8, 8)
     assert mvn.tri_inv(K).shape == (0, 8, 8)
     assert mvn.mvn_ll(K, torch.zeros(0, 8, 3, device=dev), torch.zeros(0, device=dev))[0].shape == (0,)
-    assert mvn.launch_counts == {"chol_inv": 0, "mvn_ll": 0, "tri_inv": 0}
+    assert mvn.cholesky(K).shape == (0, 8, 8)
+    assert mvn.mvn_ll_inv(K, torch.zeros(0, 8, 3, device=dev),
+                          torch.zeros(0, device=dev))[2].shape == (0, 8, 3)
+    assert mvn.launch_counts == {"chol_inv": 0, "mvn_ll": 0, "tri_inv": 0, "mvn_ll_inv": 0,
+                                 "cholesky": 0}
 
 
 def test_functions_backward_match_twin_autograd(dev):
@@ -110,13 +145,18 @@ def test_functions_backward_match_twin_autograd(dev):
         return ops.mvn_ll(K, Y, na.to(A.dtype)).sum() + (L * cL.to(A.dtype)).sum() \
             + 1e-2 * ((W + Wt) * cL.to(A.dtype)).sum()
 
-    grads = []
-    for ops, dt in ((mvn.KERNEL_OPS, torch.float32), (mvn.PLAIN_OPS, torch.float64)):
-        a = A.to(dt).requires_grad_(True)
-        y = Y.to(dt).requires_grad_(True)
-        grads.append(torch.autograd.grad(f(a, y, ops), (a, y)))
-    for g_k, g_p in zip(*grads):
-        _close(g_k, g_p, rtol=1e-3)
+    def g(A, Y, ops):  # the K4 and K5 Functions
+        K = A @ A.mT / m + torch.eye(m, device=dev, dtype=A.dtype)
+        return ops.mvn_ll_inv(K, Y, na.to(A.dtype)).sum() + (ops.cholesky(K) * cL.to(A.dtype)).sum()
+
+    for fn in (f, g):
+        grads = []
+        for ops, dt in ((mvn.KERNEL_OPS, torch.float32), (mvn.PLAIN_OPS, torch.float64)):
+            a = A.to(dt).requires_grad_(True)
+            y = Y.to(dt).requires_grad_(True)
+            grads.append(torch.autograd.grad(fn(a, y, ops), (a, y)))
+        for g_k, g_p in zip(*grads):
+            _close(g_k, g_p, rtol=1e-3)
 
 
 def test_split_on_card_matches_twin(dev):
@@ -130,6 +170,17 @@ def test_split_on_card_matches_twin(dev):
     _close(tri_inv_split(L), W)
     _close(mvn_ll_split(K.float(), Y.float(), na.float(), leaf_mvn=96),
            mvn.mvn_ll_plain(K, Y, na)[0])
+    mvn.reset_launch_counts()
+    _close(mvn_ll_split(K.float(), Y.float(), na.float(), leaf_mvn=96, mvn_inv=True),
+           mvn.mvn_ll_plain(K, Y, na)[0])
+    assert mvn.launch_counts["mvn_ll_inv"] == 1 and mvn.launch_counts["mvn_ll"] == 0
+
+
+@pytest.mark.parametrize("m", [24, 136])
+def test_doubling_on_card_matches_twin(dev, m):
+    rng = np.random.default_rng(3)
+    L = torch.linalg.cholesky(torch.as_tensor(_spd(rng, 4, m), device=dev))
+    _close(batched_tri_inv_doubling(L.float()), mvn.tri_inv_plain(L))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -144,3 +195,31 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         mvn.mvn_ll(K, torch.zeros(2, 8, 3, device=dev), torch.zeros(3, device=dev))
     with pytest.raises(ValueError):
         mvn.mvn_ll(K, torch.zeros(2, 8, 257, device=dev), torch.zeros(2, device=dev))
+
+
+def test_route_wrappers_reject_what_the_kernels_do_not_take(dev):
+    K = torch.eye(8, device=dev).expand(2, 8, 8).contiguous()
+    Y = torch.zeros(2, 8, 3, device=dev)
+    n = torch.full((2,), 8.0, device=dev)
+    with pytest.raises(TypeError):
+        mvn.cholesky(K.double())
+    with pytest.raises(ValueError):
+        mvn.cholesky(K.mT)  # not contiguous
+    with pytest.raises(ValueError):
+        mvn.cholesky(torch.eye(241, device=dev)[None])
+    with pytest.raises(TypeError):
+        mvn.mvn_ll_inv(K, Y.double(), n)
+    with pytest.raises(ValueError):
+        mvn.mvn_ll_inv(K, Y, torch.zeros(3, device=dev))
+    with pytest.raises(ValueError):
+        mvn.mvn_ll_inv(torch.eye(159, device=dev)[None], torch.zeros(1, 159, 50, device=dev),
+                       torch.ones(1, device=dev))
+    with pytest.raises(ValueError):
+        mvn.mvn_ll_inv(K, torch.zeros(2, 8, 257, device=dev), n)
+    mvn.reset_launch_counts()
+    # the largest shapes the gates admit do launch
+    mvn.cholesky(torch.eye(240, device=dev)[None])
+    mvn.mvn_ll_inv(torch.eye(158, device=dev)[None], torch.zeros(1, 158, 50, device=dev),
+                   torch.ones(1, device=dev))
+    torch.cuda.synchronize()
+    assert mvn.launch_counts["cholesky"] == 1 and mvn.launch_counts["mvn_ll_inv"] == 1

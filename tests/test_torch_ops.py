@@ -158,10 +158,11 @@ def test_cpu_calls_launch_no_kernel(rng):
     mvn.reset_launch_counts()
     Kp, Ym, nact = _masked(rng, 2, 8, 2, [8, 5])
     K = _t(Kp).requires_grad_(True)
-    ll = mvn.MvnLL.apply(K, _t(Ym), _t(nact))
+    ll = mvn.MvnLL.apply(K, _t(Ym), _t(nact)) + mvn.MvnLLInv.apply(K, _t(Ym), _t(nact))
     L, W = mvn.CholInv.apply(K)
-    (ll.sum() + W.sum() + mvn.TriInv.apply(L).sum()).backward()
-    assert mvn.launch_counts == {"chol_inv": 0, "mvn_ll": 0, "tri_inv": 0}
+    (ll.sum() + W.sum() + mvn.TriInv.apply(L).sum() + mvn.Cholesky.apply(K).sum()).backward()
+    assert mvn.launch_counts == {"chol_inv": 0, "mvn_ll": 0, "tri_inv": 0, "mvn_ll_inv": 0,
+                                 "cholesky": 0}
 
 
 def test_twin_gives_nan_on_non_pd_like_jax(rng):
@@ -192,3 +193,8 @@ def test_kernel_caps_follow_shared_memory():
 def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         mvn.chol_inv(torch.eye(4, device="meta")[None])
+    with pytest.raises(ValueError):
+        mvn.cholesky(torch.eye(4, device="meta")[None])
+    with pytest.raises(ValueError):
+        mvn.mvn_ll_inv(torch.eye(4, device="meta")[None], torch.zeros(1, 4, 2),
+                       torch.ones(1))
