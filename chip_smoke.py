@@ -12,12 +12,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
              source, all at once.
 3. kernels - each kernel against its plain PyTorch twin on the card, at the
              flagship shapes, forward and backward; median times of both.
-             K5 takes K1's unary inputs and K4 takes K2's pair inputs.
+             K5 takes K1's unary inputs and K4 takes K2's pair inputs.  K3
+             also at m=152 (the first capacity growth) and at its cap m=224
+             on seeded factors, and cholesky_split at [4,248,248] (past
+             K5's cap: K5 leaves and K3) against the twin's Cholesky.
 4. routes  - the flagship problem (synthetic n=10,000, 100 grid blocks
              padded to m=136, 180 axis-only edges, dy=50, task=x) on each
              route of the objective (ROUTES): one loss+grad with the
              kernels against the same route on the twins, and each other
-             route against the default one; ms/eval of all six in turns.
+             route against the default one; ms/eval of all six in turns;
+             device-busy ms of one loss+grad of each (torch.profiler,
+             kernel events only).
 5. lbfgs   - per route, with the launch counters reset just before and read
              just after: the default route runs 2 dispatches of 25
              scan-L-BFGS steps, the other two one dispatch each from the
@@ -54,6 +59,10 @@ ROUTES = {
     "unary_doubling": (dict(mvn_inv=False, unary_doubling=True), 1,
                        ("cholesky", "mvn_ll", "tri_inv"), ("chol_inv", "mvn_ll_inv")),
 }
+# K3 widths checked beyond the flagship's: the first capacity growth and the cap
+TRI_INV_WIDTHS = (152, 224)
+# cholesky_split's check: wider than K5's cap (240), so it splits
+CHOL_SPLIT_SHAPE = (4, 248)
 # the route whose L-BFGS run gives each kernel's launch count
 KERNEL_ROUTE = {"chol_inv": "default", "mvn_ll": "default", "tri_inv": "default",
                 "mvn_ll_inv": "mvn_inv", "cholesky": "unary_doubling"}
@@ -145,8 +154,70 @@ def flagship_inputs(fused, x_flat, torch):
     return seen
 
 
-def check_kernels(fused, x_flat, torch):
+def compare(c, args, torch):
+    """One kernel against its twin on the same inputs: (forward normwise rel
+    err, backward rel err, forward max abs err, kernel ms, twin ms).  The
+    backward is the Function's analytic pullback against PyTorch's autograd
+    through the twin, under the same cotangents; only the matrix inputs are
+    differentiated (n_active is a count)."""
+    out_k = c["kernel"](*args)
+    out_p = c["plain"](*args)
+    out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+    out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+    torch.cuda.synchronize()
+    fwd = max(rel_err(a, b) for a, b in zip(out_k, out_p))
+    abs_err = max(float((a - b).abs().max()) for a, b in zip(out_k, out_p))
+    cots = c["cot"](out_p)
+    grads = []
+    for f in (c["fn"], c["plain"]):
+        ins = [a.clone().requires_grad_(a.dim() == 3) for a in args]
+        out = f(*ins)
+        out = out if isinstance(out, tuple) else (out,)
+        out = out[:len(cots)]
+        diff = [t for t in ins if t.requires_grad]
+        grads.append(torch.autograd.grad(out, diff, cots))
+    bwd = max(rel_err(a, b) for a, b in zip(*grads))
+    ms = median_ms(lambda: c["kernel"](*args), torch)
+    plain_ms = median_ms(lambda: c["plain"](*args), torch)
+    if not (fwd <= RTOL_FWD and bwd <= RTOL_BWD):
+        raise AssertionError(f"{c['name']} {[tuple(a.shape) for a in args]} disagrees with its "
+                             f"twin: fwd {fwd:.3e} (limit {RTOL_FWD}), bwd {bwd:.3e} "
+                             f"(limit {RTOL_BWD})")
+    return fwd, bwd, abs_err, ms, plain_ms
+
+
+def seeded_factors(B, m, gen, torch, dev):
+    """Lower Cholesky factors [B, m, m] in float32 of A A^T / m + I, A
+    seeded normal (kappa(K) <= ~5), factored in float64 by the twin."""
     from gprf_torch.ops import mvn
+
+    A = torch.randn(B, m, m, generator=gen, device=dev, dtype=torch.float64)
+    K = A @ A.mT / m + torch.eye(m, device=dev, dtype=torch.float64)
+    return K, mvn.cholesky_plain(K).float().contiguous()
+
+
+def check_cholesky_split(gen, torch, dev):
+    """cholesky_split past K5's cap against the twin's Cholesky: it must
+    run on K5 leaves and K3, and agree in float32."""
+    from gprf_torch.ops import mvn
+    from gprf_torch.ops.split_mvn import cholesky_split
+
+    B, m = CHOL_SPLIT_SHAPE
+    K, _ = seeded_factors(B, m, gen, torch, dev)
+    K = K.float().contiguous()
+    mvn.reset_launch_counts()
+    L = cholesky_split(K)
+    torch.cuda.synchronize()
+    launches = {k: mvn.launch_counts[k] for k in ("cholesky", "tri_inv")}
+    fwd = rel_err(L, mvn.cholesky_plain(K))
+    log(f"cholesky_split [{B},{m},{m}]: rel err {fwd:.3e} vs cholesky_plain, launches {launches}")
+    if launches["cholesky"] < 2 or launches["tri_inv"] < 1 or not fwd <= RTOL_FWD:
+        raise AssertionError(f"cholesky_split at m={m}: launches {launches}, rel err {fwd:.3e}")
+    return dict(shape=[B, m, m], rel_err=fwd, check_launches=launches)
+
+
+def check_kernels(fused, x_flat, torch):
+    from gprf_torch.ops import _build, mvn
 
     inputs = flagship_inputs(fused, x_flat, torch)
     gen = torch.Generator(device=fused.device).manual_seed(1)
@@ -178,39 +249,28 @@ def check_kernels(fused, x_flat, torch):
     }
     report = {}
     for name, c in cases.items():
-        shapes = [tuple(a.shape) for a in c["args"]]
-        out_k = c["kernel"](*c["args"])
-        out_p = c["plain"](*c["args"])
-        out_k = out_k if isinstance(out_k, tuple) else (out_k,)
-        out_p = out_p if isinstance(out_p, tuple) else (out_p,)
-        torch.cuda.synchronize()
-        fwd = max(rel_err(a, b) for a, b in zip(out_k, out_p))
-        abs_err = max(float((a - b).abs().max()) for a, b in zip(out_k, out_p))
-
-        # backward: the Function's analytic pullback against PyTorch's
-        # autograd through the twin, under the same cotangents; only the
-        # matrix inputs are differentiated (n_active is a count)
-        cots = c["cot"](out_p)
-        grads = []
-        for f in (c["fn"], c["plain"]):
-            ins = [a.clone().requires_grad_(a.dim() == 3) for a in c["args"]]
-            out = f(*ins)
-            out = out if isinstance(out, tuple) else (out,)
-            out = out[:len(cots)]
-            diff = [t for t in ins if t.requires_grad]
-            grads.append(torch.autograd.grad(out, diff, cots))
-        bwd = max(rel_err(a, b) for a, b in zip(*grads))
-
-        ms = median_ms(lambda: c["kernel"](*c["args"]), torch)
-        plain_ms = median_ms(lambda: c["plain"](*c["args"]), torch)
-        log(f"kernel {name} {shapes}: fwd rel err {fwd:.3e}, bwd rel err {bwd:.3e}, "
-            f"{ms:.4f} ms vs twin {plain_ms:.4f} ms")
-        if not (fwd <= RTOL_FWD and bwd <= RTOL_BWD):
-            raise AssertionError(f"{name} disagrees with its twin: fwd {fwd:.3e} "
-                                 f"(limit {RTOL_FWD}), bwd {bwd:.3e} (limit {RTOL_BWD})")
+        c["name"] = name
+        fwd, bwd, abs_err, ms, plain_ms = compare(c, c["args"], torch)
+        log(f"kernel {name} {[tuple(a.shape) for a in c['args']]}: fwd rel err {fwd:.3e}, "
+            f"bwd rel err {bwd:.3e}, {ms:.4f} ms vs twin {plain_ms:.4f} ms")
         report[name] = dict(name=name, route="cuda", source=c["source"],
                             replaces=c["replaces"], launches=0, max_abs_err=abs_err,
                             ms=ms, plain_ms=plain_ms)
+
+    # K3 past the flagship width, on as many factors as the flagship has pairs
+    B = inputs["tri_inv"][0].shape[0]
+    report["tri_inv"]["ctas_per_sm"] = _build.load().lib.gprf_tri_inv_ctas_per_sm(M0)
+    report["tri_inv"]["widths"] = []
+    for m in TRI_INV_WIDTHS:
+        _, L = seeded_factors(B, m, gen, torch, fused.device)
+        fwd, bwd, abs_err, ms, plain_ms = compare(cases["tri_inv"], (L,), torch)
+        log(f"kernel tri_inv [{B}, {m}, {m}]: fwd rel err {fwd:.3e}, bwd rel err {bwd:.3e}, "
+            f"{ms:.4f} ms vs twin {plain_ms:.4f} ms; CTAs per SM "
+            f"{_build.load().lib.gprf_tri_inv_ctas_per_sm(m)}")
+        report["tri_inv"]["widths"].append(dict(shape=[B, m, m], fwd_rel_err=fwd, bwd_rel_err=bwd,
+                                                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms))
+    log(f"K3 CTAs per SM at m={M0}: {report['tri_inv']['ctas_per_sm']}")
+    report["cholesky"]["split"] = check_cholesky_split(gen, torch, fused.device)
     return report
 
 
@@ -230,6 +290,27 @@ def eval_ms(losses, x0, torch, reps=20):
             if rep:  # the first round warms up
                 times[i].append((time.perf_counter() - t0) * 1e3)
     return [statistics.median(t) for t in times]
+
+
+def device_busy(loss, x0, torch, calls=5):
+    """(device-busy ms, kernel launches) of one loss+grad: the kernel events
+    of a torch.profiler trace over `calls` calls, summed, per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gprf_torch.optim.lbfgs import value_and_grad
+
+    value_and_grad(loss, x0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            value_and_grad(loss, x0)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no kernel on the device")
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    return busy_us / 1e3 / calls, len(kernels) / calls
 
 
 def use_route(fused, route, ops):
@@ -276,6 +357,13 @@ def check_routes(fused, x0, torch):
         report[route].update(ms_per_eval=ms[2 * i], plain_ms_per_eval=ms[2 * i + 1])
         log(f"route {route} ms/eval (loss + grad, median of 20 in turns): kernels "
             f"{ms[2 * i]:.3f}, twins {ms[2 * i + 1]:.3f}")
+    for i, route in enumerate(ROUTES):
+        (busy, n), (plain_busy, plain_n) = (device_busy(losses[2 * i + t], x0, torch)
+                                            for t in (0, 1))
+        report[route].update(device_busy_ms=busy, device_launches=n,
+                             plain_device_busy_ms=plain_busy, plain_device_launches=plain_n)
+        log(f"route {route} device busy per loss+grad (profiler, kernel events): kernels "
+            f"{busy:.3f} ms ({n:.0f} launches), twins {plain_busy:.3f} ms ({plain_n:.0f})")
     return report
 
 

@@ -1,5 +1,5 @@
 // Shared helpers of the batched Cholesky kernels (K1 chol_inv.cu, K2 mvn.cu,
-// K3 tri_inv.cu, K4 mvn_inv.cu, K5 chol.cu).
+// K4 mvn_inv.cu, K5 chol.cu; the blocked K3 tri_inv.cu takes only kTiny).
 //
 // Every kernel takes a row-major [B, m, m] f32 batch and runs one CTA per
 // matrix: the matrix sits in dynamic shared memory for the whole

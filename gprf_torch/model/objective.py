@@ -21,7 +21,9 @@ Two routes of the reference run other kernels; each is an explicit option
   mvn_ll_inv, which also returns W = L^-1 and L^-1 Y, so the pair
   backward is products only and launches no K3.
 - ``unary_doubling`` (``GPRF_UNARY_DOUBLING``): the unary factors come from
-  K5 (cholesky, m <= 240, no split) and their inverses from the
+  K5 (cholesky; above its cap m = 240 through the split of
+  :func:`gprf_torch.ops.split_mvn.cholesky_split`, where the reference
+  falls back to XLA's Cholesky) and their inverses from the
   recursive-doubling :func:`gprf_torch.linalg.doubling.batched_tri_inv_doubling`.
 
 Gradients with respect to X, the kernel hyperparameters and the noise
@@ -43,7 +45,7 @@ from gprf_torch.kernels.gpcov import GPCov
 from gprf_torch.linalg.doubling import batched_tri_inv_doubling
 from gprf_torch.linalg.masked import pad_kernel_matrix
 from gprf_torch.ops.mvn import KERNEL_OPS, Ops
-from gprf_torch.ops.split_mvn import chol_inv_split, mvn_ll_split
+from gprf_torch.ops.split_mvn import chol_inv_split, cholesky_split, mvn_ll_split
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -82,7 +84,7 @@ def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
     Kp = pad_kernel_matrix(cross_kernel_matrix(cov, Xb, Xb) + noise_var * eye, mask)
     Ym = Y[assignment] * maskf[:, :, None]
     if unary_doubling:
-        Ls = ops.cholesky(Kp)
+        Ls = cholesky_split(Kp, ops=ops)
         Ws = batched_tri_inv_doubling(Ls)
     else:
         Ls, Ws = chol_inv_split(Kp, ops=ops)

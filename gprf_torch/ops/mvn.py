@@ -41,8 +41,8 @@ SMEM_BYTES = 232_448
 _F32 = 4
 # K1 holds K, the running inverse and one column: (2 m^2 + m) floats.
 MAX_M_CHOL_INV = 168
-# K3 holds L and the running inverse: 2 m^2 floats.
-MAX_M_TRI_INV = 168
+# K3 works in blocks of 16 over m padded to a multiple of 16.
+TRI_INV_NB = 16
 # K5 holds K and one column: (m^2 + m) floats.
 MAX_M_CHOL = 240
 # K2's static shared memory (per-warp partial sums of the quadratic form).
@@ -63,6 +63,17 @@ def mvn_max_m(dy: int) -> int:
     while mvn_smem_bytes(m, dy) > SMEM_BYTES:
         m -= 1
     return m
+
+
+def tri_inv_smem_bytes(m: int) -> int:
+    """K3's shared memory: W = L^-1 at the padded width mp (mp^2 floats)
+    and two buffers of one 16-row panel of L (16 mp floats each)."""
+    mp = -(-m // TRI_INV_NB) * TRI_INV_NB
+    return (mp * mp + 2 * TRI_INV_NB * mp) * _F32
+
+
+# Largest m whose K3 working set fits the CTA's shared memory: 224.
+MAX_M_TRI_INV = max(m for m in range(1, 512) if tri_inv_smem_bytes(m) <= SMEM_BYTES)
 
 
 def mvn_inv_smem_bytes(m: int, dy: int) -> int:
@@ -221,9 +232,13 @@ def mvn_ll(Kp, Ym, n_active):
 def tri_inv(L):
     """K3: W = L^-1 for lower-triangular [B, m, m] (upper triangle ignored).
 
-    Replaces ``_tri_inv_kernel`` (gprf_tpu/ops/pallas_mvn.py).  Bound, like
-    K1, by m sequential substitution steps of shared-memory row updates;
-    one CTA per matrix keeps L and the inverse on-chip (csrc/tri_inv.cu)."""
+    Replaces ``_tri_inv_kernel`` (gprf_tpu/ops/pallas_mvn.py).  Bound by
+    the length of its dependency chain, not by FLOPs or bytes, so it runs
+    ceil(m/16) block rows instead of m substitution steps: the 16 x 16
+    diagonal blocks are inverted at once in registers, then each block row
+    is two register-tiled products, left-looking.  One CTA per matrix keeps
+    W in shared memory and streams L in 16-row panels; two CTAs share an SM
+    at m = 136 (csrc/tri_inv.cu, :func:`tri_inv_smem_bytes`)."""
     if _on_cpu(L):
         return tri_inv_plain(L)
     B, m = _square_batch("tri_inv", L)
@@ -277,7 +292,9 @@ def cholesky(K):
     K1, by m sequential steps of shared-memory row updates; it is K1's
     k-loop without the substitution, one CTA per matrix holding K and one
     column (csrc/chol.cu).  Above its cap it raises, where the TPU
-    pipeline falls back to XLA's Cholesky without a word."""
+    pipeline falls back to XLA's Cholesky without a word; callers go
+    through :func:`gprf_torch.ops.split_mvn.cholesky_split`, which keeps
+    every leaf on the kernels."""
     if _on_cpu(K):
         return cholesky_plain(K)
     B, m = _square_batch("cholesky", K)

@@ -8,7 +8,8 @@ batched matrix products:
     L21 = K21 W_A^T,  C' = C - L21 L21^T,  W_A = L_A^-1
 
 Each leaf is one kernel launch.  The leaf caps are the kernels' own
-shared-memory caps on the H100 (:data:`LEAF_CHOL` = 168 for K1 and K3,
+shared-memory caps on the H100 (:data:`LEAF_CHOL` = 168 for K1,
+:data:`LEAF_TRI` = 224 for K3, :data:`LEAF_CHOLESKY` = 240 for K5,
 :func:`gprf_torch.ops.mvn.mvn_max_m` = 216 at dy = 50 for K2), so the
 flagship width m = 136 goes straight to the kernels and only wider blocks
 split.  The ``leaf`` arguments force a split, for tests and comparisons.
@@ -25,6 +26,7 @@ import torch
 
 from gprf_torch.ops.mvn import (
     KERNEL_OPS,
+    MAX_M_CHOL,
     MAX_M_CHOL_INV,
     MAX_M_TRI_INV,
     Ops,
@@ -34,6 +36,7 @@ from gprf_torch.ops.mvn import (
 
 LEAF_CHOL = MAX_M_CHOL_INV
 LEAF_TRI = MAX_M_TRI_INV
+LEAF_CHOLESKY = MAX_M_CHOL
 
 
 def split_point(m: int) -> int:
@@ -78,6 +81,23 @@ def tri_inv_split(L, leaf: int | None = None, ops: Ops = KERNEL_OPS):
     Wa = tri_inv_split(A, leaf, ops)
     Wc = tri_inv_split(C, leaf, ops)
     return _assemble_lower(Wa, -(Wc @ B21 @ Wa), Wc)
+
+
+def cholesky_split(K, leaf: int | None = None, ops: Ops = KERNEL_OPS):
+    """L = chol(K) for SPD [B, m, m] with cholesky leaves, W_A from
+    ``tri_inv_split``: L21 = K21 W_A^T, L_C = chol(C - L21 L21^T).  Up to
+    the leaf cap it is one K5 launch; wider (where ``gprf_tpu``'s pipeline
+    falls back to XLA's Cholesky) every leaf stays on the kernels."""
+    m = K.shape[-1]
+    leaf = LEAF_CHOLESKY if leaf is None else leaf
+    if m <= leaf:
+        return ops.cholesky(K)
+    h = split_point(m)
+    A, K21, C = _blocks(K, h)
+    La = cholesky_split(A, leaf, ops)
+    L21 = K21 @ tri_inv_split(La, ops=ops).mT
+    Lc = cholesky_split(C - L21 @ L21.mT, leaf, ops)
+    return _assemble_lower(La, L21, Lc)
 
 
 def mvn_ll_split(Kp, Ym, n_active, leaf_mvn: int | None = None,

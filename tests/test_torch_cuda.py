@@ -17,7 +17,7 @@ import torch
 import gprf_torch  # noqa: F401  (precision pins)
 from gprf_torch.linalg.doubling import batched_tri_inv_doubling
 from gprf_torch.ops import mvn
-from gprf_torch.ops.split_mvn import chol_inv_split, mvn_ll_split, tri_inv_split
+from gprf_torch.ops.split_mvn import chol_inv_split, cholesky_split, mvn_ll_split, tri_inv_split
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -62,13 +62,69 @@ def test_chol_inv_kernel(dev, B, m):
     assert torch.all(torch.triu(L, 1) == 0) and torch.all(torch.triu(W, 1) == 0)
 
 
-@pytest.mark.parametrize("B,m", [(3, 37), (7, 136), (2, 168), (2, 3)])
+# ragged and full last blocks of K3's 16-wide blocking, the flagship width,
+# the first capacity growth, the former cap and the cap
+@pytest.mark.parametrize("B,m", [(3, 37), (7, 136), (2, 168), (2, 3), (2, 1), (3, 2), (3, 15),
+                                 (3, 16), (3, 17), (3, 33), (5, 152), (2, 224)])
 def test_tri_inv_kernel(dev, B, m):
     rng = np.random.default_rng(m)
     L = torch.linalg.cholesky(torch.as_tensor(_spd(rng, B, m), device=dev))
+    mvn.reset_launch_counts()
+    W = mvn.tri_inv(L.float().contiguous())
+    torch.cuda.synchronize()
+    assert mvn.launch_counts["tri_inv"] == 1
+    _close(W, mvn.tri_inv_plain(L))
+    assert torch.all(torch.triu(W, 1) == 0)
+
+
+def _tri(dev, B, m, seed=4):
+    rng = np.random.default_rng(seed)
+    return torch.linalg.cholesky(torch.as_tensor(_spd(rng, B, m), device=dev))
+
+
+def test_tri_inv_kernel_reads_only_the_lower_triangle(dev):
+    L = _tri(dev, 3, 45)
+    dirty = L.float() + torch.triu(torch.full_like(L.float(), float("nan")), 1)
+    W = mvn.tri_inv(dirty.contiguous())
+    torch.cuda.synchronize()
+    assert torch.isfinite(W).all()
+    _close(W, mvn.tri_inv_plain(torch.tril(L)))
+
+
+def test_tri_inv_kernel_guards_the_reciprocal_like_the_tpu_kernel(dev):
+    """A diagonal entry of 1e-31 is read as 1e-30 (the guard of
+    ``_tri_inv_kernel``), so W's last row is ~1e30 and equals the twin's on
+    L with that entry set to 1e-30."""
+    L = _tri(dev, 2, 40)
+    L[:, -1, -1] = 1e-31
+    W = mvn.tri_inv(L.float().contiguous())
+    torch.cuda.synchronize()
+    ref = L.clone()
+    ref[:, -1, -1] = 1e-30
+    ref = mvn.tri_inv_plain(ref)
+    assert ref[:, -1, -1].min() >= 1e29
+    _close(W[:, :-1], ref[:, :-1])
+    _close(W[:, -1:], ref[:, -1:])
+
+
+def test_tri_inv_kernel_keeps_identity_padding_exact(dev):
+    B, m = 4, 136
+    n_active = np.array([136, 100, 97, 40])
+    rng = np.random.default_rng(5)
+    L = torch.linalg.cholesky(torch.as_tensor(_spd(rng, B, m, n_active), device=dev))
     W = mvn.tri_inv(L.float().contiguous())
     torch.cuda.synchronize()
     _close(W, mvn.tri_inv_plain(L))
+    for b, n in enumerate(n_active):
+        assert torch.all(W[b, n:, n:] == torch.eye(m - n, device=dev))
+        assert torch.all(W[b, n:, :n] == 0)
+    assert torch.all(torch.triu(W, 1) == 0)
+
+
+def test_tri_inv_kernel_refuses_past_its_cap(dev):
+    mvn.tri_inv(torch.eye(mvn.MAX_M_TRI_INV, device=dev)[None])
+    with pytest.raises(ValueError):
+        mvn.tri_inv(torch.eye(mvn.MAX_M_TRI_INV + 1, device=dev)[None])
 
 
 @pytest.mark.parametrize("B,m,dy", [(3, 37, 5), (9, 136, 50), (2, 216, 50), (4, 40, 1),
@@ -161,7 +217,7 @@ def test_functions_backward_match_twin_autograd(dev):
 
 def test_split_on_card_matches_twin(dev):
     rng = np.random.default_rng(2)
-    B, m, dy = 3, 200, 50  # forces chol/tri splits at the 168 leaf cap
+    B, m, dy = 3, 200, 50  # forces chol_inv splits at the 168 leaf cap
     K = torch.as_tensor(_spd(rng, B, m), device=dev)
     Y = torch.as_tensor(rng.normal(size=(B, m, dy)), device=dev)
     na = torch.full((B,), float(m), device=dev, dtype=torch.float64)
@@ -223,3 +279,59 @@ def test_route_wrappers_reject_what_the_kernels_do_not_take(dev):
                    torch.ones(1, device=dev))
     torch.cuda.synchronize()
     assert mvn.launch_counts["cholesky"] == 1 and mvn.launch_counts["mvn_ll_inv"] == 1
+
+
+def _wide_blocks_value_and_grad(dev, dtype, ops, m=248, dy=4):
+    """ll and d ll / dX of three blocks of width m (two pairs) on the
+    unary-doubling route."""
+    from gprf_torch.model.objective import gprf_ll_schur
+    from gprf_torch.utils.convert import params_from_numpy
+
+    rng = np.random.default_rng(6)
+    n_active = [m, m - 18, m - 48]
+    X = rng.uniform(size=(sum(n_active), 2))
+    Y = rng.normal(size=(sum(n_active), dy))
+    assignment = np.zeros((3, m), dtype=np.int64)
+    mask = np.zeros((3, m), dtype=bool)
+    start = 0
+    for b, n in enumerate(n_active):
+        assignment[b, :n] = np.arange(start, start + n)
+        mask[b, :n] = True
+        start += n
+    edges = np.array([[0, 1], [1, 2]])
+    p = params_from_numpy(X, [1.0], [0.1, 0.1], 0.1, device=dev, dtype=dtype)
+    p.X.requires_grad_(True)
+
+    def t(a, dt=None):
+        return torch.as_tensor(a, device=dev, dtype=dt)
+
+    ll = gprf_ll_schur(p, t(Y, dtype), t(assignment), t(mask), t(edges),
+                       t([0.0, -1.0, 0.0], dtype), t([1.0, 1.0], dtype), ops=ops,
+                       unary_doubling=True)
+    (gX,) = torch.autograd.grad(ll, p.X)
+    return float(ll.detach()), gX.double().flatten()
+
+
+def test_unary_doubling_route_runs_past_the_cholesky_cap(dev):
+    """At m = 248 > MAX_M_CHOL the route factors its blocks by
+    cholesky_split over K5 leaves and K3 (before, mvn.cholesky raised) and
+    agrees with the twins in float64."""
+    assert 248 > mvn.MAX_M_CHOL
+    mvn.reset_launch_counts()
+    v, g = _wide_blocks_value_and_grad(dev, torch.float32, mvn.KERNEL_OPS)
+    torch.cuda.synchronize()
+    assert mvn.launch_counts["cholesky"] >= 2 and mvn.launch_counts["tri_inv"] >= 1
+    v_ref, g_ref = _wide_blocks_value_and_grad(dev, torch.float64, mvn.PLAIN_OPS)
+    assert abs(v - v_ref) <= 1e-5 * abs(v_ref)
+    assert float(g @ g_ref / (g.norm() * g_ref.norm())) > 0.9999
+
+
+def test_cholesky_split_on_card_matches_twin(dev):
+    rng = np.random.default_rng(7)
+    K = torch.as_tensor(_spd(rng, 4, 248, [248, 240, 201, 130]), device=dev)
+    mvn.reset_launch_counts()
+    L = cholesky_split(K.float())
+    torch.cuda.synchronize()
+    assert mvn.launch_counts["cholesky"] == 2 and mvn.launch_counts["tri_inv"] == 1
+    _close(L, mvn.cholesky_plain(K))
+    assert torch.all(torch.triu(L, 1) == 0)

@@ -180,7 +180,10 @@ def test_kernel_caps_follow_shared_memory():
     """The caps the wrappers enforce are what 227 KB of shared memory holds."""
     m = mvn.MAX_M_CHOL_INV
     assert (2 * m * m + m) * 4 <= mvn.SMEM_BYTES
-    assert 2 * mvn.MAX_M_TRI_INV**2 * 4 <= mvn.SMEM_BYTES
+    m = mvn.MAX_M_TRI_INV  # W at the padded width and two 16-row panels of L
+    assert mvn.tri_inv_smem_bytes(m) <= mvn.SMEM_BYTES < mvn.tri_inv_smem_bytes(m + 1)
+    assert mvn.tri_inv_smem_bytes(136) == (144 * 144 + 2 * 16 * 144) * 4 == 101_376
+    assert m == 224 >= 168
     assert mvn.mvn_max_m(50) == 216
     for dy in (1, 5, 50, 256):
         m = mvn.mvn_max_m(dy)

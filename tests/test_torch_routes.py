@@ -66,12 +66,15 @@ def route(request, monkeypatch):
     jax.clear_caches()
 
 
-def _counted_ops(calls):
+def _counted_ops(calls, widths=None):
     """KERNEL_OPS with each primitive's calls counted (on the CPU the
-    wrappers run the twins, so the launch counters stay at 0)."""
+    wrappers run the twins, so the launch counters stay at 0), and the
+    width m of each call appended to ``widths[name]`` if given."""
     def counted(name, f):
         def g(*args):
             calls[name] += 1
+            if widths is not None:
+                widths[name].append(args[0].shape[-1])
             return f(*args)
         return g
     return mvn.Ops(*(counted(n, f) for n, f in zip(mvn.Ops._fields, mvn.KERNEL_OPS)))
@@ -288,12 +291,12 @@ def test_gprf_ll_schur_route_matches_jax(rng, route, prob):
         np.testing.assert_allclose(got, ref, rtol=1e-7, atol=1e-10)
 
 
-def _fused_pair(p, name, torch_calls):
+def _fused_pair(p, name, torch_calls, widths=None):
     args = (p["X0"], p["Y"], p["centers"], p["edges"], p["X_obs"], p["obs_std"])
     jf = jfused.FusedGridGPRF(*args, JCov.create(p["wfn"], p["dfn"]), p["noise_var"],
                               pair_mode="schur_pallas")
     tf = tfused.FusedGridGPRF(*args, cov_from_numpy(p["wfn"], p["dfn"], **F64),
-                              p["noise_var"], ops=_counted_ops(torch_calls), **F64,
+                              p["noise_var"], ops=_counted_ops(torch_calls, widths), **F64,
                               **_ROUTE[name][0])
     assert tf.m == jf.m
     return jf, tf
@@ -313,18 +316,26 @@ def test_fused_entry_problem_route_matches_jax(route):
 
 def test_fused_forced_split_route_matches_jax(route, monkeypatch):
     """Leaf 16 in both packages: the pair MVN splits, so K4 runs at a Schur
-    leaf after A-side chol_inv leaves, and K5's backward splits its K3."""
+    leaf after A-side chol_inv leaves, and K5's backward splits its K3.
+    The port's K5 leaf is 16 too, so the unary-doubling route factors its
+    blocks by cholesky_split (where gprf_tpu's runs its Cholesky kernel
+    whole) and K5 runs only at leaves of width <= 16."""
     name, jax_calls = route
     monkeypatch.setattr(jsplit, "LEAF_CHOL", 16)
     monkeypatch.setattr(jsplit, "LEAF_MVN", 16)
     monkeypatch.setattr(split_mvn, "LEAF_CHOL", 16)
     monkeypatch.setattr(split_mvn, "LEAF_TRI", 16)
+    monkeypatch.setattr(split_mvn, "LEAF_CHOLESKY", 16)
     monkeypatch.setattr(split_mvn, "mvn_max_m", lambda dy: 16)
     torch_calls = collections.Counter()
+    widths = collections.defaultdict(list)
     p = _grid_problem(3, 200, 4, 4, 0.3)
-    jf, tf = _fused_pair(p, name, torch_calls)
+    jf, tf = _fused_pair(p, name, torch_calls, widths)
     assert tf.m > 32
     x = p["X0"].reshape(-1)
     _assert_close(*tf.value_and_grad(x), *jf.value_and_grad(x))
     _assert_routes_ran(name, jax_calls, torch_calls, split=True)
     assert torch_calls["chol_inv"] > 0  # the split's A-side leaves
+    assert max(widths["tri_inv"], default=0) <= 16
+    if name == "unary_doubling":
+        assert torch_calls["cholesky"] >= 3 and max(widths["cholesky"]) <= 16

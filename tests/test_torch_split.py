@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from gprf_tpu.linalg.masked import pad_kernel_matrix
+from gprf_tpu.ops import pallas_mvn as pm
 from gprf_tpu.ops import split_mvn as jsplit
 from gprf_torch.ops import mvn
 from gprf_torch.ops import split_mvn as tsplit
@@ -42,6 +43,56 @@ def test_tri_inv_split_matches_jax(rng):
     W_ref = jsplit.tri_inv_split(jnp.asarray(L), interpret=True, leaf=16)
     W = tsplit.tri_inv_split(_t(L), leaf=16)
     np.testing.assert_allclose(W.numpy(), np.asarray(W_ref), rtol=1e-9, atol=1e-12)
+
+
+def _padded_spd(rng, m, n_actives):
+    K = _spd(rng, len(n_actives), m)
+    mask = np.arange(m)[None, :] < np.asarray(n_actives)[:, None]
+    return np.asarray(jax.vmap(pad_kernel_matrix)(jnp.asarray(K), jnp.asarray(mask)))
+
+
+# n_active above, at and below the split point h = 24 of m = 40 (and of
+# the nested splits at leaf 8)
+@pytest.mark.parametrize("leaf", [16, 8])
+def test_cholesky_split_matches_jax(rng, leaf):
+    """The split over K5 leaves and K3 against gprf_tpu's Cholesky kernel
+    run whole (its route's call above the port's leaf cap), values and
+    cotangents, padded blocks included.  The split reads only K21 of the
+    off-diagonal blocks, so its cotangent equals the kernel's symmetrized
+    one once symmetrized itself (K is symmetric in every caller)."""
+    Kp = _padded_spd(rng, 40, [40, 30, 24, 17, 8])
+    dL = rng.normal(size=Kp.shape)
+    L_ref, vjp = jax.vjp(lambda K: pm.batched_cholesky_pallas(K, True), jnp.asarray(Kp))
+    (dK_ref,) = vjp(jnp.asarray(dL))
+    K = _t(Kp).requires_grad_(True)
+    L = tsplit.cholesky_split(K, leaf=leaf)
+    (dK,) = torch.autograd.grad(L, K, _t(dL))
+    np.testing.assert_allclose(L.detach().numpy(), np.asarray(L_ref), rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose((0.5 * (dK + dK.mT)).numpy(), np.asarray(dK_ref),
+                               rtol=1e-7, atol=1e-9)
+
+
+def test_cholesky_split_keeps_every_leaf_on_the_kernels():
+    """Up to the K5 cap one cholesky call; past it, leaves <= the cap and
+    one triangular inverse per split, never a chol_inv."""
+    calls = []
+
+    def rec(name, f):
+        return lambda A: calls.append((name, A.shape[-1])) or f(A)
+
+    ops = mvn.Ops(chol_inv=rec("chol_inv", mvn.chol_inv_plain), mvn_ll=None,
+                  tri_inv=rec("tri_inv", mvn.tri_inv_plain),
+                  cholesky=rec("cholesky", mvn.cholesky_plain))
+    assert tsplit.LEAF_CHOLESKY == mvn.MAX_M_CHOL == 240
+    tsplit.cholesky_split(torch.eye(240, dtype=torch.float64)[None], ops=ops)
+    assert calls == [("cholesky", 240)]
+    calls.clear()
+    tsplit.cholesky_split(torch.eye(248, dtype=torch.float64)[None], ops=ops)
+    assert calls == [("cholesky", 128), ("tri_inv", 128), ("cholesky", 120)]
+    calls.clear()
+    tsplit.cholesky_split(torch.eye(40, dtype=torch.float64)[None], leaf=16, ops=ops)
+    assert calls == [("cholesky", 16), ("tri_inv", 16), ("cholesky", 8), ("tri_inv", 24),
+                     ("cholesky", 16)]
 
 
 @pytest.mark.parametrize("dy", [1, 5])
@@ -109,7 +160,7 @@ def test_flagship_width_needs_no_split():
     """The leaf caps are the kernels' shared-memory caps, so m = 136 at
     dy = 50 goes straight to one kernel launch, and wider m splits."""
     assert tsplit.LEAF_CHOL == mvn.MAX_M_CHOL_INV >= 136
-    assert tsplit.LEAF_TRI == mvn.MAX_M_TRI_INV >= 136
+    assert tsplit.LEAF_TRI == mvn.MAX_M_TRI_INV >= 168
     assert mvn.mvn_max_m(50) >= 136
     calls = []
     ops = mvn.Ops(chol_inv=lambda K: calls.append(K.shape[-1]) or mvn.chol_inv_plain(K),
