@@ -11,11 +11,15 @@ Phases, each of which raises on failure (exit code 1, no result line):
              K5 cholesky from gprf_torch/csrc for sm_90a, one nvcc per
              source, all at once.
 3. kernels - each kernel against its plain PyTorch twin on the card, at the
-             flagship shapes, forward and backward; median times of both.
-             K5 takes K1's unary inputs and K4 takes K2's pair inputs.  K3
-             also at m=152 (the first capacity growth) and at its cap m=224
-             on seeded factors, and cholesky_split at [4,248,248] (past
-             K5's cap: K5 leaves and K3) against the twin's Cholesky.
+             flagship shapes, forward and backward; median times of both,
+             of the one PyTorch call that computes the same function where
+             there is one (K3, K5), and the kernel's bound from its FLOPs
+             and bytes.  K5 takes K1's unary inputs and K4 takes K2's pair
+             inputs.  K2 also at m=152 (the first capacity growth) and at
+             its cap m=208 (dy=50) on seeded inputs, with its CTAs per
+             SM; K3 also at m=152 and at its
+             cap m=224 on seeded factors, and cholesky_split at [4,248,248]
+             (past K5's cap: K5 leaves and K3) against the twin's Cholesky.
 4. routes  - the flagship problem (synthetic n=10,000, 100 grid blocks
              padded to m=136, 180 axis-only edges, dy=50, task=x) on each
              route of the objective (ROUTES): one loss+grad with the
@@ -29,7 +33,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
              same start at m=136; each run must launch its route's kernels
              and none that the route does not run.
 
-Output: a JSON line describing each kernel, the nvidia-smi line, and last
+Output: a JSON line describing each kernel (its launches on the main path,
+its max abs error against its twin, its ms, its twin's, its library call's
+and its bound), the nvidia-smi line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of JAX.
 """
@@ -61,6 +67,9 @@ ROUTES = {
 }
 # K3 widths checked beyond the flagship's: the first capacity growth and the cap
 TRI_INV_WIDTHS = (152, 224)
+# K2 widths checked beyond the flagship's: the first capacity growth and the
+# cap at dy = 50 (mvn_max_m)
+MVN_WIDTHS = (152, 208)
 # cholesky_split's check: wider than K5's cap (240), so it splits
 CHOL_SPLIT_SHAPE = (4, 248)
 # the route whose L-BFGS run gives each kernel's launch count
@@ -76,6 +85,11 @@ RTOL_FWD = 1e-4
 RTOL_BWD = 1e-3
 RTOL_LOSS = 1e-5
 MIN_GRAD_COSINE = 0.9999
+
+# Published peaks of one H100 SXM at 700 W: float32 outside the tensor
+# cores, and HBM3 bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def log(msg):
@@ -104,6 +118,33 @@ def median_ms(fn, torch, reps=20, launches=10):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop) / launches)
     return statistics.median(times)
+
+
+def work(name, args):
+    """(FLOPs, bytes) of one call of kernel `name` on `args`: each input read
+    once, the [B, m, m] matrix (K or L) only in its lower triangle, the one
+    part that each kernel's function depends on, and each output written
+    once, whole; a Cholesky or a triangular inverse m^3/3 FLOPs a matrix, a
+    substitution of dy right-hand sides m^2 dy and the quadratic form
+    2 m dy."""
+    B, m = args[0].shape[:2]
+    dy = args[1].shape[-1] if len(args) > 1 else 0
+    chol, rhs = m ** 3 / 3, m * m * dy + 2 * m * dy
+    flops = {"chol_inv": 2 * chol, "mvn_ll": chol + rhs, "tri_inv": chol,
+             "mvn_ll_inv": 2 * chol + rhs, "cholesky": chol}[name]
+    out_floats = {"chol_inv": 2 * m * m, "mvn_ll": m * m + 1, "tri_inv": m * m,
+                  "mvn_ll_inv": m * m + m * dy + 1, "cholesky": m * m}[name]
+    in_bytes = (B * m * (m + 1) // 2 * args[0].element_size()
+                + sum(a.numel() * a.element_size() for a in args[1:]))
+    return B * flops, in_bytes + B * out_floats * 4
+
+
+def bound(name, args):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for the work, at the published peaks."""
+    flops, nbytes = work(name, args)
+    ops_ms, bytes_ms = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
 
 
 def build_problem(torch, dev):
@@ -155,8 +196,9 @@ def flagship_inputs(fused, x_flat, torch):
 
 
 def compare(c, args, torch):
-    """One kernel against its twin on the same inputs: (forward normwise rel
-    err, backward rel err, forward max abs err, kernel ms, twin ms).  The
+    """One kernel against its twin on the same inputs: forward normwise rel
+    err, backward rel err, forward max abs err, kernel ms, twin ms, the
+    library call's ms (None where there is none) and the bound.  The
     backward is the Function's analytic pullback against PyTorch's autograd
     through the twin, under the same cotangents; only the matrix inputs are
     differentiated (n_active is a count)."""
@@ -179,11 +221,19 @@ def compare(c, args, torch):
     bwd = max(rel_err(a, b) for a, b in zip(*grads))
     ms = median_ms(lambda: c["kernel"](*args), torch)
     plain_ms = median_ms(lambda: c["plain"](*args), torch)
+    library_ms = median_ms(lambda: c["library"](*args), torch) if c.get("library") else None
     if not (fwd <= RTOL_FWD and bwd <= RTOL_BWD):
         raise AssertionError(f"{c['name']} {[tuple(a.shape) for a in args]} disagrees with its "
                              f"twin: fwd {fwd:.3e} (limit {RTOL_FWD}), bwd {bwd:.3e} "
                              f"(limit {RTOL_BWD})")
-    return fwd, bwd, abs_err, ms, plain_ms
+    bound_ms, bound_by = bound(c["name"], args)
+    r = dict(fwd_rel_err=fwd, bwd_rel_err=bwd, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"kernel {c['name']} {[tuple(a.shape) for a in args]}: fwd rel err {fwd:.3e}, "
+        f"bwd rel err {bwd:.3e}, {ms:.4f} ms vs twin {plain_ms:.4f} ms, library "
+        f"{'-' if library_ms is None else f'{library_ms:.4f} ms'}, bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    return r
 
 
 def seeded_factors(B, m, gen, torch, dev):
@@ -216,6 +266,14 @@ def check_cholesky_split(gen, torch, dev):
     return dict(shape=[B, m, m], rel_err=fwd, check_launches=launches)
 
 
+def seeded_mvn_inputs(B, m, gen, torch, dev):
+    """K2's inputs at width m: Kp = A A^T / m + I in float32, Y [B, m, DY]
+    seeded normal, every row active."""
+    K, _ = seeded_factors(B, m, gen, torch, dev)
+    Y = torch.randn(B, m, DY, generator=gen, device=dev)
+    return K.float().contiguous(), Y, torch.full((B,), float(m), device=dev)
+
+
 def check_kernels(fused, x_flat, torch):
     from gprf_torch.ops import _build, mvn
 
@@ -225,6 +283,8 @@ def check_kernels(fused, x_flat, torch):
     def randn_like(t):
         return torch.randn(t.shape, generator=gen, device=t.device, dtype=t.dtype)
 
+    dev = fused.device
+    eyes = {m: torch.eye(m, device=dev) for m in (M0, *TRI_INV_WIDTHS)}
     cases = {
         "chol_inv": dict(
             source="gprf_torch/csrc/chol_inv.cu", replaces="gprf_tpu/ops/pallas_mvn.py:411",
@@ -237,7 +297,9 @@ def check_kernels(fused, x_flat, torch):
         "tri_inv": dict(
             source="gprf_torch/csrc/tri_inv.cu", replaces="gprf_tpu/ops/pallas_mvn.py:259",
             args=inputs["tri_inv"], kernel=mvn.tri_inv, plain=mvn.tri_inv_plain,
-            fn=mvn.TriInv.apply, cot=lambda out: [randn_like(out[0])]),
+            fn=mvn.TriInv.apply, cot=lambda out: [randn_like(out[0])],
+            library=lambda L: torch.linalg.solve_triangular(L, eyes[L.shape[-1]].expand(L.shape),
+                                                            upper=False)),
         "mvn_ll_inv": dict(
             source="gprf_torch/csrc/mvn_inv.cu", replaces="gprf_tpu/ops/pallas_mvn.py:771",
             args=inputs["mvn_ll_inv"], kernel=mvn.mvn_ll_inv, plain=mvn.mvn_ll_inv_plain,
@@ -245,32 +307,42 @@ def check_kernels(fused, x_flat, torch):
         "cholesky": dict(
             source="gprf_torch/csrc/chol.cu", replaces="gprf_tpu/ops/pallas_mvn.py:144",
             args=inputs["cholesky"], kernel=mvn.cholesky, plain=mvn.cholesky_plain,
-            fn=mvn.Cholesky.apply, cot=lambda out: [randn_like(out[0])]),
+            fn=mvn.Cholesky.apply, cot=lambda out: [randn_like(out[0])],
+            library=lambda K: torch.linalg.cholesky_ex(K)),
     }
     report = {}
     for name, c in cases.items():
         c["name"] = name
-        fwd, bwd, abs_err, ms, plain_ms = compare(c, c["args"], torch)
-        log(f"kernel {name} {[tuple(a.shape) for a in c['args']]}: fwd rel err {fwd:.3e}, "
-            f"bwd rel err {bwd:.3e}, {ms:.4f} ms vs twin {plain_ms:.4f} ms")
-        report[name] = dict(name=name, route="cuda", source=c["source"],
-                            replaces=c["replaces"], launches=0, max_abs_err=abs_err,
-                            ms=ms, plain_ms=plain_ms)
+        report[name] = dict(name=name, route="cuda", source=c["source"], replaces=c["replaces"],
+                            launches=0, **compare(c, c["args"], torch))
 
-    # K3 past the flagship width, on as many factors as the flagship has pairs
+    # K2 and K3 past the flagship width, on as many matrices as the flagship has pairs
+    lib = _build.load().lib
     B = inputs["tri_inv"][0].shape[0]
-    report["tri_inv"]["ctas_per_sm"] = _build.load().lib.gprf_tri_inv_ctas_per_sm(M0)
+    if mvn.mvn_max_m(DY) != MVN_WIDTHS[-1]:
+        raise AssertionError(f"K2's cap at dy={DY} is {mvn.mvn_max_m(DY)}, not {MVN_WIDTHS[-1]}")
+    report["mvn_ll"]["ctas_per_sm"] = lib.gprf_mvn_ctas_per_sm(M0, DY)
+    report["mvn_ll"]["widths"] = []
+    for m in MVN_WIDTHS:
+        args = seeded_mvn_inputs(B, m, gen, torch, dev)
+        report["mvn_ll"]["widths"].append(dict(
+            shape=[B, m, m, DY], ctas_per_sm=lib.gprf_mvn_ctas_per_sm(m, DY),
+            **compare(cases["mvn_ll"], args, torch)))
+    report["tri_inv"]["ctas_per_sm"] = lib.gprf_tri_inv_ctas_per_sm(M0)
     report["tri_inv"]["widths"] = []
     for m in TRI_INV_WIDTHS:
-        _, L = seeded_factors(B, m, gen, torch, fused.device)
-        fwd, bwd, abs_err, ms, plain_ms = compare(cases["tri_inv"], (L,), torch)
-        log(f"kernel tri_inv [{B}, {m}, {m}]: fwd rel err {fwd:.3e}, bwd rel err {bwd:.3e}, "
-            f"{ms:.4f} ms vs twin {plain_ms:.4f} ms; CTAs per SM "
-            f"{_build.load().lib.gprf_tri_inv_ctas_per_sm(m)}")
-        report["tri_inv"]["widths"].append(dict(shape=[B, m, m], fwd_rel_err=fwd, bwd_rel_err=bwd,
-                                                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms))
-    log(f"K3 CTAs per SM at m={M0}: {report['tri_inv']['ctas_per_sm']}")
-    report["cholesky"]["split"] = check_cholesky_split(gen, torch, fused.device)
+        _, L = seeded_factors(B, m, gen, torch, dev)
+        report["tri_inv"]["widths"].append(dict(
+            shape=[B, m, m], ctas_per_sm=lib.gprf_tri_inv_ctas_per_sm(m),
+            **compare(cases["tri_inv"], (L,), torch)))
+    log(f"CTAs per SM: K2 at m={M0}, dy={DY}: {report['mvn_ll']['ctas_per_sm']}, at "
+        f"{MVN_WIDTHS}: {[w['ctas_per_sm'] for w in report['mvn_ll']['widths']]}; K3 at "
+        f"m={M0}: {report['tri_inv']['ctas_per_sm']}, at {TRI_INV_WIDTHS}: "
+        f"{[w['ctas_per_sm'] for w in report['tri_inv']['widths']]}")
+    if report["mvn_ll"]["ctas_per_sm"] < 2:
+        raise AssertionError(f"K2 fits {report['mvn_ll']['ctas_per_sm']} CTAs an SM at m={M0}; "
+                             "its design needs 2")
+    report["cholesky"]["split"] = check_cholesky_split(gen, torch, dev)
     return report
 
 
@@ -446,7 +518,7 @@ def main():
     built = _build.load()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {built.seconds:.2f} s) -> {built.path}")
     for line in built.log.splitlines():
-        if "Used" in line:
+        if any(w in line for w in ("Compiling entry", "Used", "spill")):
             log(f"  ptxas: {line.strip()}")
 
     fused, X_obs = build_problem(torch, dev)

@@ -1,5 +1,6 @@
-// Shared helpers of the batched Cholesky kernels (K1 chol_inv.cu, K2 mvn.cu,
-// K4 mvn_inv.cu, K5 chol.cu; the blocked K3 tri_inv.cu takes only kTiny).
+// Shared helpers of the batched Cholesky kernels (K1 chol_inv.cu, K4
+// mvn_inv.cu, K5 chol.cu; the blocked K2 mvn.cu and K3 tri_inv.cu take only
+// kTiny, the cp.async helpers and fma_row).
 //
 // Every kernel takes a row-major [B, m, m] f32 batch and runs one CTA per
 // matrix: the matrix sits in dynamic shared memory for the whole
@@ -78,6 +79,30 @@ __device__ __forceinline__ void rank1_rows(float* M, int ld, int r0, int m, int 
       if (j >= lo && j < h) Mr[j] = val[c] - xr * v[c];
     }
   }
+}
+
+// 4-byte async copy global -> shared; zero-fills when !valid (src unread)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// acc[j] += a * b[j], a 1 x 4 row of a register tile
+__device__ __forceinline__ void fma_row(float (&acc)[4], float a, const float4& b) {
+  acc[0] = fmaf(a, b.x, acc[0]);
+  acc[1] = fmaf(a, b.y, acc[1]);
+  acc[2] = fmaf(a, b.z, acc[2]);
+  acc[3] = fmaf(a, b.w, acc[3]);
 }
 
 // set the dynamic shared memory limit, launch, and report the launch status

@@ -48,21 +48,10 @@ size_t smem_bytes(int m) {
   return (mp * mp + 2 * kNb * mp) * sizeof(float);
 }
 
-// 4-byte async copy global -> shared; zero-fills when !valid (src unread)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+using gprf::cp_async4;
+using gprf::cp_async_commit;
+using gprf::cp_async_wait_all;
+using gprf::fma_row;
 
 // Panel i of L, the 16 x 16 i block row left of L_ii, transposed into
 // P[k * 16 + r] = L[16 i + r, k]; rows past m are zero.
@@ -108,13 +97,6 @@ __device__ __forceinline__ void invert_diagonal(float* W, const float* L, int m,
       for (int r = 0; r < kNb; ++r) W[(o + r) * mp + o + c] = w[r];
     }
   }
-}
-
-__device__ __forceinline__ void fma_row(float (&acc)[4], float a, const float4& b) {
-  acc[0] = fmaf(a, b.x, acc[0]);
-  acc[1] = fmaf(a, b.y, acc[1]);
-  acc[2] = fmaf(a, b.z, acc[2]);
-  acc[3] = fmaf(a, b.w, acc[3]);
 }
 
 // Block row i of W from the final block rows above it and panel P of L.

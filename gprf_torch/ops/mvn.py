@@ -41,23 +41,33 @@ SMEM_BYTES = 232_448
 _F32 = 4
 # K1 holds K, the running inverse and one column: (2 m^2 + m) floats.
 MAX_M_CHOL_INV = 168
-# K3 works in blocks of 16 over m padded to a multiple of 16.
-TRI_INV_NB = 16
 # K5 holds K and one column: (m^2 + m) floats.
 MAX_M_CHOL = 240
-# K2's static shared memory (per-warp partial sums of the quadratic form).
+# K4's static shared memory (per-warp partial sums of the quadratic form).
 _MVN_STATIC_BYTES = 16 * _F32
-# K2 keeps each lane's slice of a row of Y in registers: dy <= 8 * 32.
+# K2 and K3 work in blocks of NB over m padded to a multiple of NB.
+NB = 16
+# K2's static shared memory: one NB x NB block (D_k^T) and 8 per-warp
+# partial sums.
+_MVN_BLOCKED_STATIC_BYTES = (NB * NB + 8) * _F32
+# K2 and K4 take dy <= 256.
 MAX_DY_MVN = 256
 
 
+def _round_up(n: int, to: int) -> int:
+    return -(-n // to) * to
+
+
 def mvn_smem_bytes(m: int, dy: int) -> int:
-    """K2's shared memory: K, Y and one column of L."""
-    return (m * m + m * dy + m) * _F32 + _MVN_STATIC_BYTES
+    """K2's shared memory: K (and then L) at the padded width mp, mp^2
+    floats, and Y (and then L^-1 Y) at mp x dyp, dy padded to a multiple
+    of 4; 112,896 B of dynamic shared memory at m = 136, dy = 50."""
+    mp, dyp = _round_up(m, NB), _round_up(dy, 4)
+    return (mp * mp + mp * dyp) * _F32 + _MVN_BLOCKED_STATIC_BYTES
 
 
 def mvn_max_m(dy: int) -> int:
-    """Largest m whose K2 working set fits the CTA's shared memory; 216 at
+    """Largest m whose K2 working set fits the CTA's shared memory; 208 at
     the flagship dy = 50."""
     m = int(math.isqrt(SMEM_BYTES // _F32))
     while mvn_smem_bytes(m, dy) > SMEM_BYTES:
@@ -68,8 +78,8 @@ def mvn_max_m(dy: int) -> int:
 def tri_inv_smem_bytes(m: int) -> int:
     """K3's shared memory: W = L^-1 at the padded width mp (mp^2 floats)
     and two buffers of one 16-row panel of L (16 mp floats each)."""
-    mp = -(-m // TRI_INV_NB) * TRI_INV_NB
-    return (mp * mp + 2 * TRI_INV_NB * mp) * _F32
+    mp = _round_up(m, NB)
+    return (mp * mp + 2 * NB * mp) * _F32
 
 
 # Largest m whose K3 working set fits the CTA's shared memory: 224.
@@ -201,11 +211,14 @@ def mvn_ll(Kp, Ym, n_active):
     """K2: (ll [B], L) for padded-masked Kp [B, m, m], zero-padded Ym
     [B, m, dy] and active counts [B].
 
-    Replaces ``_mvn_kernel`` (gprf_tpu/ops/pallas_mvn.py).  Bound, like K1,
-    by m sequential steps of shared-memory row updates; the substitution of
-    the dy right-hand sides, the log-determinant and the quadratic form
-    share the factorization's k-loop, so K and Y are read once and only ll
-    and L are written (csrc/mvn.cu)."""
+    Replaces ``_mvn_kernel`` (gprf_tpu/ops/pallas_mvn.py).  Bound by the
+    length of its dependency chain, not by FLOPs or bytes, so it runs
+    ceil(m/16) left-looking block columns instead of m rank-1 steps: one
+    warp factors each 16 x 16 diagonal block in registers while the others
+    update the panel and the right-hand sides, then all apply the block's
+    inverse as register-tiled products.  K and Y are read once and only ll
+    and L are written; two CTAs share an SM at m = 136, dy = 50
+    (csrc/mvn.cu, :func:`mvn_smem_bytes`)."""
     if _on_cpu(Kp, Ym, n_active):
         return mvn_ll_plain(Kp, Ym, n_active)
     B, m = _square_batch("mvn_ll", Kp)
@@ -260,8 +273,8 @@ def mvn_ll_inv(Kp, Ym, n_active):
     :func:`mvn_inv_supported`.
 
     Replaces ``_mvn_inv_kernel`` (gprf_tpu/ops/pallas_mvn.py).  Bound, like
-    K2, by m sequential steps of shared-memory row updates; K1's folded
-    substitution for W shares K2's k-loop, so one pass over K gives ll and
+    K1, by m sequential steps of shared-memory row updates; K1's folded
+    substitution for W shares the MVN's k-loop, so one pass over K gives ll and
     both residuals of the backward pass, and L never leaves the SM
     (csrc/mvn_inv.cu)."""
     if _on_cpu(Kp, Ym, n_active):

@@ -127,20 +127,144 @@ def test_tri_inv_kernel_refuses_past_its_cap(dev):
         mvn.tri_inv(torch.eye(mvn.MAX_M_TRI_INV + 1, device=dev)[None])
 
 
-@pytest.mark.parametrize("B,m,dy", [(3, 37, 5), (9, 136, 50), (2, 216, 50), (4, 40, 1),
-                                    (2, 240, 1), (3, 40, 200)])
-def test_mvn_kernel(dev, B, m, dy):
-    rng = np.random.default_rng(m + dy)
-    n_active = rng.integers(m // 2, m + 1, size=B)
+def _mvn_inputs(dev, B, m, dy, n_active=None, seed=None):
+    rng = np.random.default_rng(m + dy if seed is None else seed)
+    n_active = rng.integers(m // 2, m + 1, size=B) if n_active is None else np.asarray(n_active)
     K = torch.as_tensor(_spd(rng, B, m, n_active), device=dev)
     mask = torch.as_tensor(np.arange(m)[None, :] < n_active[:, None], device=dev)
     Y = torch.as_tensor(rng.normal(size=(B, m, dy)), device=dev) * mask[:, :, None]
-    na = torch.as_tensor(n_active, dtype=torch.float64, device=dev)
+    return K, Y, torch.as_tensor(n_active, dtype=torch.float64, device=dev)
+
+
+# K2's 16-wide blocking: one block, ragged and full last blocks, the flagship
+# width, the first capacity growth and the caps at dy = 50, 1 and 256; dy
+# ragged against K2's 4-wide columns and 16-wide tiles
+@pytest.mark.parametrize("B,m,dy", [(3, 37, 5), (9, 136, 50), (2, mvn.mvn_max_m(50), 50),
+                                    (4, 40, 1), (2, mvn.mvn_max_m(1), 1), (3, 40, 200),
+                                    (2, 1, 1), (2, 1, 256), (3, 15, 5), (3, 16, 50), (3, 17, 1),
+                                    (3, 33, 256), (5, 152, 50), (4, 136, 5),
+                                    (2, mvn.mvn_max_m(256), 256)])
+def test_mvn_kernel(dev, B, m, dy):
+    K, Y, na = _mvn_inputs(dev, B, m, dy)
+    mvn.reset_launch_counts()
+    ll, L = mvn.mvn_ll(K.float(), Y.float(), na.float())
+    torch.cuda.synchronize()
+    assert mvn.launch_counts["mvn_ll"] == 1
+    ll_ref, L_ref = mvn.mvn_ll_plain(K, Y, na)
+    _close(ll, ll_ref)
+    _close(L, L_ref)
+    assert torch.all(torch.triu(L, 1) == 0)
+
+
+@pytest.mark.parametrize("k_offset,y_offset", [(1, 2), (2, 1), (4, 4)])
+def test_mvn_kernel_takes_views_at_any_offset(dev, k_offset, y_offset):
+    """K2 copies rows 16, 8 or 4 bytes at a time, as the inputs' strides and
+    start addresses allow; contiguous views that start off a 16-byte
+    boundary take the narrower copies."""
+    B, m, dy = 3, 36, 8
+    K, Y, na = _mvn_inputs(dev, B, m, dy, seed=12)
+
+    def view_at(t, offset):
+        flat = torch.zeros(t.numel() + offset, device=dev)
+        flat[offset:] = t.float().flatten()
+        return flat[offset:].view(t.shape)
+
+    ll, L = mvn.mvn_ll(view_at(K, k_offset), view_at(Y, y_offset), na.float())
+    torch.cuda.synchronize()
+    ll_ref, L_ref = mvn.mvn_ll_plain(K, Y, na)
+    _close(ll, ll_ref)
+    _close(L, L_ref)
+
+
+def test_mvn_kernel_keeps_identity_padding_exact(dev):
+    n_active = [136, 100, 97, 40, 1]
+    K, Y, na = _mvn_inputs(dev, 5, 136, 50, n_active, seed=8)
     ll, L = mvn.mvn_ll(K.float(), Y.float(), na.float())
     torch.cuda.synchronize()
     ll_ref, L_ref = mvn.mvn_ll_plain(K, Y, na)
     _close(ll, ll_ref)
     _close(L, L_ref)
+    for b, n in enumerate(n_active):
+        assert torch.all(L[b, n:, n:] == torch.eye(136 - n, device=dev))
+        assert torch.all(L[b, n:, :n] == 0)
+
+
+def test_mvn_kernel_reads_only_the_lower_triangle(dev):
+    K, Y, na = _mvn_inputs(dev, 3, 45, 5, seed=9)
+    dirty = K.float() + torch.triu(torch.full_like(K.float(), float("nan")), 1)
+    ll, L = mvn.mvn_ll(dirty.contiguous(), Y.float(), na.float())
+    torch.cuda.synchronize()
+    assert torch.isfinite(ll).all() and torch.isfinite(L).all()
+    clean = torch.tril(K) + torch.tril(K, -1).mT
+    ll_ref, L_ref = mvn.mvn_ll_plain(clean, Y, na)
+    _close(ll, ll_ref)
+    _close(L, L_ref)
+
+
+def _mvn_steps(K, Y, n):
+    """(ll, L) by the step loop of ``_mvn_kernel`` (gprf_tpu/ops/pallas_mvn.py),
+    one [m, m] block in float64: pivot d = rsqrt(max(a_kk, 1e-30)), column k
+    of L is a[:, k] d (so L_kk = a_kk d), logdet adds log(max(a_kk, 1e-30))."""
+    A, Z = K.clone(), Y.clone()
+    m, dy = Y.shape
+    idx = torch.arange(m)
+    logdet = torch.zeros((), dtype=K.dtype)
+    for k in range(m):
+        akk = torch.clamp(A[k, k], min=1e-30)
+        d = torch.rsqrt(akk)
+        logdet = logdet + torch.log(akk)
+        col = torch.where(idx >= k, A[k] * d, 0.0)
+        A[k] = col
+        colu = torch.where(idx > k, col, 0.0)
+        A = A - torch.outer(colu, colu)
+        Z[k] = Z[k] * d
+        Z = Z - torch.outer(colu, Z[k])
+    ll = -0.5 * torch.sum(Z * Z) - 0.5 * dy * logdet - 0.5 * dy * n * mvn.LOG_2PI
+    return ll, torch.tril(A.mT)
+
+
+def test_mvn_kernel_clamps_pivots_like_the_tpu_kernel(dev):
+    """A pivot of 1e-31 and a negative pivot, each with nonzero entries below
+    it: the kernel scales their columns and right-hand sides by
+    rsqrt(max(a_kk, 1e-30)) and adds log(max(a_kk, 1e-30)) to logdet, as the
+    TPU kernel's step does (not 1/L_kk and 2 log L_kk).  In block 1 the
+    rows of Y at the two pivots are zero, so ll shows the clamped logdet."""
+    rng = np.random.default_rng(10)
+    B, m, dy = 2, 37, 5
+    K = _spd(rng, B, m)
+    for p, v in ((5, 1e-31), (20, -0.5)):  # in block columns 0 and 1
+        K[:, p, :p] = K[:, :p, p] = 0.0
+        K[:, p, p] = v
+        K[:, p + 1:, p] = K[:, p, p + 1:] = 1e-16 * rng.normal(size=(B, m - p - 1))
+    Y = rng.normal(size=(B, m, dy))
+    Y[1, [5, 20]] = 0.0
+    K = K.astype(np.float32).astype(np.float64)  # the kernel's inputs, exactly
+    ll, L = mvn.mvn_ll(torch.as_tensor(K, dtype=torch.float32, device=dev),
+                       torch.as_tensor(Y, dtype=torch.float32, device=dev),
+                       torch.full((B,), float(m), device=dev))
+    torch.cuda.synchronize()
+    for b in range(B):
+        ll_ref, L_ref = _mvn_steps(torch.as_tensor(K[b]), torch.as_tensor(Y[b]), m)
+        assert abs(float(ll[b]) - float(ll_ref)) <= 1e-5 * abs(float(ll_ref))
+        err = (L[b].double().cpu() - L_ref).abs() / (L_ref.abs() + 1.0)
+        assert float(err.max()) <= 1e-4
+        assert float(L_ref[20, 20]) < -1e14 and 0.0 < float(L_ref[5, 5]) < 1e-15
+
+
+def test_mvn_kernel_refuses_past_its_cap(dev):
+    cap = mvn.mvn_max_m(50)
+    assert cap >= 200
+    with pytest.raises(ValueError):
+        mvn.mvn_ll(torch.eye(cap + 1, device=dev)[None], torch.zeros(1, cap + 1, 50, device=dev),
+                   torch.ones(1, device=dev))
+
+
+def test_mvn_kernel_fits_two_ctas_an_sm_at_the_flagship(dev):
+    from gprf_torch.ops import _build
+
+    lib = _build.load().lib
+    assert lib.gprf_mvn_ctas_per_sm(136, 50) == 2
+    assert lib.gprf_mvn_ctas_per_sm(mvn.mvn_max_m(50), 50) >= 1
 
 
 @pytest.mark.parametrize("B,m", [(3, 37), (5, 136), (2, 240), (1, 1), (4, 65)])

@@ -184,13 +184,19 @@ def test_kernel_caps_follow_shared_memory():
     assert mvn.tri_inv_smem_bytes(m) <= mvn.SMEM_BYTES < mvn.tri_inv_smem_bytes(m + 1)
     assert mvn.tri_inv_smem_bytes(136) == (144 * 144 + 2 * 16 * 144) * 4 == 101_376
     assert m == 224 >= 168
-    assert mvn.mvn_max_m(50) == 216
+    # K2: K at the padded width mp, Y at mp x dyp (dy padded to 4), one 16 x 16
+    # block and 8 partial sums of static shared memory
+    assert mvn.mvn_max_m(50) == 208
     for dy in (1, 5, 50, 256):
         m = mvn.mvn_max_m(dy)
         assert mvn.mvn_smem_bytes(m, dy) <= mvn.SMEM_BYTES < mvn.mvn_smem_bytes(m + 1, dy)
-        assert mvn.mvn_smem_bytes(m, dy) == (m * m + m * dy + m) * 4 + 64
-    assert mvn.mvn_max_m(1) <= 256  # K2's register slices cover 8 x 32 columns
-    assert 136 <= mvn.MAX_M_CHOL_INV and 136 <= mvn.mvn_max_m(50)
+        mp, dyp = -(-m // 16) * 16, -(-dy // 4) * 4
+        assert mvn.mvn_smem_bytes(m, dy) == (mp * mp + mp * dyp) * 4 + (16 * 16 + 8) * 4
+    assert mvn.mvn_smem_bytes(136, 50) == (144 * 144 + 144 * 52) * 4 + 1056 == 113_952
+    # two CTAs an SM at the flagship: 228 KB of the SM's shared memory, 1 KB reserved a CTA
+    assert 2 * (mvn.mvn_smem_bytes(136, 50) + 1024) <= 233_472
+    assert (mvn.mvn_max_m(1), mvn.mvn_max_m(256)) == (224, 144)
+    assert 136 <= mvn.MAX_M_CHOL_INV and 200 <= mvn.mvn_max_m(50)
 
 
 def test_wrappers_refuse_other_devices():

@@ -175,3 +175,22 @@ def test_flagship_width_needs_no_split():
     wide = torch.eye(176, dtype=torch.float64).expand(1, 176, 176)
     tsplit.chol_inv_split(wide, ops=ops)
     assert calls == [88, 88]
+
+
+@pytest.mark.parametrize("m", [200, 208, 209, 216])
+def test_mvn_leaf_follows_the_k2_cap(m):
+    """At dy = 50 the MVN leaf is K2's shared-memory cap, 208 for the blocked
+    kernel: capacity growth up to m = 208 stays one K2 launch, wider blocks
+    split at split_point(m) into a chol_inv leaf and an MVN leaf."""
+    assert mvn.mvn_max_m(50) == 208
+    calls = []
+    ops = mvn.Ops(chol_inv=lambda K: calls.append(("chol_inv", K.shape[-1]))
+                  or mvn.chol_inv_plain(K),
+                  mvn_ll=lambda K, Y, n: calls.append(("mvn_ll", K.shape[-1]))
+                  or mvn.mvn_ll_plain(K, Y, n)[0],
+                  tri_inv=mvn.tri_inv_plain)
+    eye = torch.eye(m, dtype=torch.float64).expand(1, m, m)
+    ll = tsplit.mvn_ll_split(eye, torch.zeros(1, m, 50, dtype=torch.float64), _t([m]), ops=ops)
+    h = tsplit.split_point(m)
+    assert calls == ([("mvn_ll", m)] if m <= 208 else [("chol_inv", h), ("mvn_ll", m - h)])
+    np.testing.assert_allclose(ll.numpy(), -0.5 * 50 * m * mvn.LOG_2PI, rtol=1e-12)
