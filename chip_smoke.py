@@ -15,7 +15,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
              of the one PyTorch call that computes the same function where
              there is one (K3, K5), and the kernel's bound from its FLOPs
              and bytes.  K5 takes K1's unary inputs and K4 takes K2's pair
-             inputs.  K2 also at m=152 (the first capacity growth) and at
+             inputs.  K1 also at m=152 and at its cap m=240 on seeded
+             inputs, with its CTAs per SM; K2 also at m=152 (the first capacity growth) and at
              its cap m=208 (dy=50) on seeded inputs, with its CTAs per
              SM; K3 also at m=152 and at its
              cap m=224 on seeded factors, and cholesky_split at [4,248,248]
@@ -65,6 +66,8 @@ ROUTES = {
     "unary_doubling": (dict(mvn_inv=False, unary_doubling=True), 1,
                        ("cholesky", "mvn_ll", "tri_inv"), ("chol_inv", "mvn_ll_inv")),
 }
+# K1 widths checked beyond the flagship's: the first capacity growth and the cap
+CHOL_INV_WIDTHS = (152, 240)
 # K3 widths checked beyond the flagship's: the first capacity growth and the cap
 TRI_INV_WIDTHS = (152, 224)
 # K2 widths checked beyond the flagship's: the first capacity growth and the
@@ -316,8 +319,20 @@ def check_kernels(fused, x_flat, torch):
         report[name] = dict(name=name, route="cuda", source=c["source"], replaces=c["replaces"],
                             launches=0, **compare(c, c["args"], torch))
 
-    # K2 and K3 past the flagship width, on as many matrices as the flagship has pairs
+    # K1 past the flagship width, on as many matrices as the flagship has blocks
     lib = _build.load().lib
+    if mvn.MAX_M_CHOL_INV != CHOL_INV_WIDTHS[-1]:
+        raise AssertionError(f"K1's cap is {mvn.MAX_M_CHOL_INV}, not {CHOL_INV_WIDTHS[-1]}")
+    B = inputs["chol_inv"][0].shape[0]
+    report["chol_inv"]["ctas_per_sm"] = lib.gprf_chol_inv_ctas_per_sm(M0)
+    report["chol_inv"]["widths"] = []
+    for m in CHOL_INV_WIDTHS:
+        K, _ = seeded_factors(B, m, gen, torch, dev)
+        report["chol_inv"]["widths"].append(dict(
+            shape=[B, m, m], ctas_per_sm=lib.gprf_chol_inv_ctas_per_sm(m),
+            **compare(cases["chol_inv"], (K.float().contiguous(),), torch)))
+
+    # K2 and K3 past the flagship width, on as many matrices as the flagship has pairs
     B = inputs["tri_inv"][0].shape[0]
     if mvn.mvn_max_m(DY) != MVN_WIDTHS[-1]:
         raise AssertionError(f"K2's cap at dy={DY} is {mvn.mvn_max_m(DY)}, not {MVN_WIDTHS[-1]}")
@@ -335,13 +350,16 @@ def check_kernels(fused, x_flat, torch):
         report["tri_inv"]["widths"].append(dict(
             shape=[B, m, m], ctas_per_sm=lib.gprf_tri_inv_ctas_per_sm(m),
             **compare(cases["tri_inv"], (L,), torch)))
-    log(f"CTAs per SM: K2 at m={M0}, dy={DY}: {report['mvn_ll']['ctas_per_sm']}, at "
+    log(f"CTAs per SM: K1 at m={M0}: {report['chol_inv']['ctas_per_sm']}, at "
+        f"{CHOL_INV_WIDTHS}: {[w['ctas_per_sm'] for w in report['chol_inv']['widths']]}; "
+        f"K2 at m={M0}, dy={DY}: {report['mvn_ll']['ctas_per_sm']}, at "
         f"{MVN_WIDTHS}: {[w['ctas_per_sm'] for w in report['mvn_ll']['widths']]}; K3 at "
         f"m={M0}: {report['tri_inv']['ctas_per_sm']}, at {TRI_INV_WIDTHS}: "
         f"{[w['ctas_per_sm'] for w in report['tri_inv']['widths']]}")
-    if report["mvn_ll"]["ctas_per_sm"] < 2:
-        raise AssertionError(f"K2 fits {report['mvn_ll']['ctas_per_sm']} CTAs an SM at m={M0}; "
-                             "its design needs 2")
+    for k, name in (("K1", "chol_inv"), ("K2", "mvn_ll")):
+        if report[name]["ctas_per_sm"] < 2:
+            raise AssertionError(f"{k} fits {report[name]['ctas_per_sm']} CTAs an SM at m={M0}; "
+                                 "its design needs 2")
     report["cholesky"]["split"] = check_cholesky_split(gen, torch, dev)
     return report
 

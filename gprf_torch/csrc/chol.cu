@@ -4,11 +4,11 @@
 // the unary-doubling route of the objective runs for every unary block
 // (B = 100 at the flagship: one wave over 132 SMs).
 //
-// Bound: as K1, m sequential steps of an O(m^2) shared-memory update, each
-// between block barriers, paced by the warps' chains of shared-memory loads
-// and stores of their rows.  Design: K1's right-looking k-loop with the
-// substitution for W left out, so the CTA holds only K and one column
-// ((m^2 + m) floats: m <= 240) and each step is one trailing update.
+// Bound: m sequential steps of an O(m^2) shared-memory update, each between
+// block barriers, paced by the warps' chains of shared-memory loads and
+// stores of their rows.  Design: a right-looking k-loop, the CTA holding
+// only K and one column ((m^2 + m) floats: m <= 240), each step one
+// trailing update.
 #include "common.cuh"
 
 namespace {

@@ -1,14 +1,15 @@
-// Shared helpers of the batched Cholesky kernels (K1 chol_inv.cu, K4
-// mvn_inv.cu, K5 chol.cu; the blocked K2 mvn.cu and K3 tri_inv.cu take only
-// kTiny, the cp.async helpers and fma_row).
+// Shared helpers of the batched Cholesky kernels.
 //
-// Every kernel takes a row-major [B, m, m] f32 batch and runs one CTA per
-// matrix: the matrix sits in dynamic shared memory for the whole
-// factorization and the k-loop is sequential.  The O(m^2) update of step k
-// goes one warp per row, lanes along the row.  Row updates are rank-1:
-// row i loses x_i * v for a vector v that is the same for every row of the
-// step, so each lane holds its slice of v in registers (kChunks values,
-// columns lane + 32 c) instead of reading it again for every row.
+// The blocked kernels (K1 chol_inv.cu and K2 mvn.cu through blocked.cuh, K3
+// tri_inv.cu) take only kTiny, the cp.async helpers and fma_row.  The rest
+// serves the sequential kernels K4 mvn_inv.cu and K5 chol.cu: each takes a
+// row-major [B, m, m] f32 batch and runs one CTA per matrix, the matrix in
+// dynamic shared memory for the whole factorization and the k-loop
+// sequential.  The O(m^2) update of step k goes one warp per row, lanes
+// along the row.  Row updates are rank-1: row i loses x_i * v for a vector
+// v that is the same for every row of the step, so each lane holds its
+// slice of v in registers (kChunks values, columns lane + 32 c) instead of
+// reading it again for every row.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -17,8 +17,10 @@
 // ~3.7k: 16 dependent pivots, each a shuffle, a rsqrt and an FMA), the
 // solves 11k, the store 9k; ~0.070 ms for the 180 matrices.
 //
-// Design: blocks of kNb = 16, m padded with identity to mp = 16 ceil(m/16)
-// and dy with zero columns to dyp = 4 ceil(dy/4), cropped on the store.
+// Design (the factor phase of blocked.cuh, which K1 runs too, here with the
+// right-hand sides Z): blocks of kNb = 16, m padded with identity to
+// mp = 16 ceil(m/16) and dy with zero columns to dyp = 4 ceil(dy/4), cropped
+// on the store.
 // Left-looking over the block columns k, two barriers each:
 //  1. Warp 0 forms the diagonal block A_kk - sum_p L_kp L_kp^T (lane c holds
 //     column c, the two half-warps split the contraction) and factors it in
@@ -37,31 +39,27 @@
 // float4; Z (mp dyp floats) holds Y, overwritten by L^-1 Y.  At m = 136,
 // dy = 50 that is 112,896 B, so two CTAs share an SM and the flagship's 180
 // matrices run in one wave; m <= 208 at dy = 50.
-#include "common.cuh"
+#include "blocked.cuh"
 
 namespace {
 
-using gprf::cp_async4;
+using gprf::copy_row;
 using gprf::cp_async_commit;
 using gprf::cp_async_wait_all;
-using gprf::fma_row;
+using gprf::factor_diagonal;
+using gprf::kNb;
+using gprf::round_up;
+using gprf::solve_tile;
+using gprf::tile_count;
+using gprf::update_tile;
 
 constexpr float kLog2Pi = 1.8378770664093453f;
-constexpr int kNb = 16;
-constexpr int kMvnThreads = 256;
-constexpr int kMvnWarps = kMvnThreads / 32;
-
-__host__ __device__ constexpr int round_up(int n, int to) { return (n + to - 1) / to * to; }
+constexpr int kMvnThreads = gprf::kBlockThreads;
+constexpr int kMvnWarps = gprf::kBlockWarps;
 
 size_t smem_bytes(int m, int dy) {
   const size_t mp = round_up(m, kNb), dyp = round_up(dy, 4);
   return (mp * mp + mp * dyp) * sizeof(float);
-}
-
-// dst[0:n) = src[0:valid) then zeros, by 4-byte cp.async; one warp
-__device__ __forceinline__ void copy_row(float* dst, const float* src, int valid, int n) {
-  for (int c = threadIdx.x & 31; c < n; c += 32)
-    cp_async4(dst + c, src + (c < valid ? c : 0), c < valid);
 }
 
 // The lower triangle of K (identity past m) into A and Y (zero past m, dy)
@@ -69,188 +67,13 @@ __device__ __forceinline__ void copy_row(float* dst, const float* src, int valid
 // before it is).
 __device__ __forceinline__ void load_inputs(float* A, float* Z, const float* K, const float* Y,
                                             int m, int mp, int dy, int dyp) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   for (int r = warp; r < mp; r += kMvnWarps) {
-    if (r < m) {
-      copy_row(A + r * mp, K + static_cast<size_t>(r) * m, r + 1, r + 1);
-    } else {
-      for (int c = lane; c <= r; c += 32) A[r * mp + c] = c == r ? 1.f : 0.f;
-    }
+    gprf::load_lower_row(A, K, r, m, mp);
     copy_row(Z + r * dyp, Y + static_cast<size_t>(min(r, m - 1)) * dy, r < m ? dy : 0, dyp);
   }
   cp_async_commit();
   cp_async_wait_all();
-}
-
-// Warp 0: the diagonal block at offset o, updated by the finished columns
-// left of it and factored in registers.  Writes L_kk to A's lower triangle
-// and DT = D_k^T; returns logdet plus this block's share.
-__device__ __forceinline__ float factor_diagonal(float* A, float* DT, int mp, int o,
-                                                 float logdet) {
-  const int lane = threadIdx.x & 31, c = lane & 15, h = lane >> 4;
-  float a[kNb];
-#pragma unroll
-  for (int r = 0; r < kNb; ++r) a[r] = 0.f;
-  // row p of the upper triangle holds L[o + r, p] at A[p * mp + o + r]
-#pragma unroll 2
-  for (int p = h; p < o; p += 2) {
-    const float* Up = A + p * mp + o;
-    const float u = Up[c];
-#pragma unroll
-    for (int r4 = 0; r4 < kNb; r4 += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(Up + r4);
-      a[r4] = fmaf(v.x, u, a[r4]);
-      a[r4 + 1] = fmaf(v.y, u, a[r4 + 1]);
-      a[r4 + 2] = fmaf(v.z, u, a[r4 + 2]);
-      a[r4 + 3] = fmaf(v.w, u, a[r4 + 3]);
-    }
-  }
-  // column c of the symmetric block, from its lower triangle
-#pragma unroll
-  for (int r = 0; r < kNb; ++r) {
-    const float s = a[r] + __shfl_xor_sync(0xffffffffu, a[r], 16);
-    a[r] = A[(o + max(r, c)) * mp + o + min(r, c)] - s;
-  }
-  // Step j: lane c > j holds a[j] = A[j, c] = A[c, j], so L[c, j] = a[j] d;
-  // L[r, j] comes from lane j.  w is column c of D_k, by forward substitution.
-  float w[kNb];
-#pragma unroll
-  for (int r = 0; r < kNb; ++r) w[r] = 0.f;
-  float mypiv = 1.f;  // lane c's: pivot c
-#pragma unroll
-  for (int j = 0; j < kNb; ++j) {
-    const float piv = fmaxf(__shfl_sync(0xffffffffu, a[j], j), gprf::kTiny);
-    const float d = piv == 1.f ? 1.f : rsqrtf(piv);  // exact at 1: padded rows stay identity
-    if (c == j) mypiv = piv;
-    const float lcj = a[j] * d;
-    if (c == j) w[j] = 1.f;  // column c of the identity, entered late
-    w[j] *= d;
-#pragma unroll
-    for (int r = j + 1; r < kNb; ++r) {
-      const float x = __shfl_sync(0xffffffffu, a[r], j) * d;  // L[r, j]
-      a[r] = c == j ? x : (c > j ? fmaf(-x, lcj, a[r]) : a[r]);
-      w[r] = fmaf(-x, w[j], w[r]);
-    }
-    if (c == j) a[j] = lcj;
-  }
-  // the 16 logs at once, off the chain of pivots
-  float lg = logf(mypiv);
-#pragma unroll
-  for (int s = 8; s > 0; s >>= 1) lg += __shfl_xor_sync(0xffffffffu, lg, s);
-  logdet += lg;
-  if (h == 0) {
-#pragma unroll
-    for (int r = 0; r < kNb; ++r)
-      if (r >= c) A[(o + r) * mp + o + c] = a[r];
-#pragma unroll
-    for (int r4 = 0; r4 < kNb; r4 += 4)
-      *reinterpret_cast<float4*>(DT + c * kNb + r4) =
-          make_float4(w[r4], w[r4 + 1], w[r4 + 2], w[r4 + 3]);
-  }
-  return logdet;
-}
-
-// Tiles of block column k: first the panel blocks (i, k), i > k, then the
-// 16-column tiles of Z's block row k.
-__device__ __forceinline__ int tile_count(int k, int nblk, int dyp) {
-  return nblk - 1 - k + (dyp + kNb - 1) / kNb;
-}
-
-// Warps 1..: tile t of block column k (offset o) loses the contribution of
-// the finished columns left of it, in place.  Lane (rp, q) owns rows
-// 2 rp, 2 rp + 1 and columns 4 q .. 4 q + 3 of the tile.
-__device__ __forceinline__ void update_tile(float* A, float* Z, int mp, int dyp, int k,
-                                            int nblk, int t) {
-  const int lane = threadIdx.x & 31, rp = lane >> 2, q = lane & 3;
-  const int o = kNb * k;
-  float acc[2][4] = {};
-  float* T;
-  int ld;
-  if (t < nblk - 1 - k) {
-    const int ri = o + kNb * (t + 1);
-#pragma unroll 4
-    for (int p = 0; p < o; ++p) {
-      const float2 a = *reinterpret_cast<const float2*>(A + p * mp + ri + 2 * rp);
-      const float4 b = *reinterpret_cast<const float4*>(A + p * mp + o + 4 * q);
-      fma_row(acc[0], a.x, b);
-      fma_row(acc[1], a.y, b);
-    }
-    T = A + (ri + 2 * rp) * mp + o + 4 * q;
-    ld = mp;
-  } else {
-    const int col = kNb * (t - (nblk - 1 - k)) + 4 * q;
-    if (col >= dyp) return;
-#pragma unroll 4
-    for (int p = 0; p < o; ++p) {
-      const float2 a = *reinterpret_cast<const float2*>(A + p * mp + o + 2 * rp);
-      const float4 b = *reinterpret_cast<const float4*>(Z + p * dyp + col);
-      fma_row(acc[0], a.x, b);
-      fma_row(acc[1], a.y, b);
-    }
-    T = Z + (o + 2 * rp) * dyp + col;
-    ld = dyp;
-  }
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    float4* Te = reinterpret_cast<float4*>(T + e * ld);
-    const float4 v = *Te;
-    *Te = make_float4(v.x - acc[e][0], v.y - acc[e][1], v.z - acc[e][2], v.w - acc[e][3]);
-  }
-}
-
-// All warps: tile t of block column k from D_k: a panel block becomes
-// L_ik = A'_ik D_k^T (and its transpose goes to the upper triangle), a tile
-// of Z becomes D_k Y'_k.
-__device__ __forceinline__ void solve_tile(float* A, float* Z, const float* DT, int mp, int dyp,
-                                           int k, int nblk, int t) {
-  const int lane = threadIdx.x & 31, rp = lane >> 2, q = lane & 3;
-  const int o = kNb * k;
-  float out[2][4] = {};
-  if (t < nblk - 1 - k) {
-    const int ri = o + kNb * (t + 1);
-    float* Ti = A + (ri + 2 * rp) * mp + o;
-#pragma unroll
-    for (int s4 = 0; s4 < kNb; s4 += 4) {
-      const float4 a0 = *reinterpret_cast<const float4*>(Ti + s4);
-      const float4 a1 = *reinterpret_cast<const float4*>(Ti + mp + s4);
-      const float x0[4] = {a0.x, a0.y, a0.z, a0.w}, x1[4] = {a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const float4 b = *reinterpret_cast<const float4*>(DT + (s4 + s) * kNb + 4 * q);
-        fma_row(out[0], x0[s], b);
-        fma_row(out[1], x1[s], b);
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      *reinterpret_cast<float4*>(Ti + e * mp + 4 * q) =
-          make_float4(out[e][0], out[e][1], out[e][2], out[e][3]);
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc)
-      *reinterpret_cast<float2*>(A + (o + 4 * q + cc) * mp + ri + 2 * rp) =
-          make_float2(out[0][cc], out[1][cc]);
-  } else {
-    const int col = kNb * (t - (nblk - 1 - k)) + 4 * q;
-    const bool valid = col < dyp;
-    float* Tz = Z + o * dyp + col;
-    if (valid) {
-#pragma unroll
-      for (int s = 0; s < kNb; ++s) {
-        const float2 a = *reinterpret_cast<const float2*>(DT + s * kNb + 2 * rp);
-        const float4 b = *reinterpret_cast<const float4*>(Tz + s * dyp);
-        fma_row(out[0], a.x, b);
-        fma_row(out[1], a.y, b);
-      }
-    }
-    __syncwarp();
-    if (valid) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        *reinterpret_cast<float4*>(Tz + (2 * rp + e) * dyp) =
-            make_float4(out[e][0], out[e][1], out[e][2], out[e][3]);
-    }
-  }
 }
 
 __global__ void __launch_bounds__(kMvnThreads, 2)
@@ -291,18 +114,7 @@ mvn_kernel(const float* __restrict__ Kin, const float* __restrict__ Yin,
     for (int w = 0; w < kMvnWarps; ++w) q += partial[w];
     ll[blockIdx.x] = -0.5f * q - 0.5f * dy * logdet - 0.5f * dy * n_active[blockIdx.x] * kLog2Pi;
   }
-  float* L = Lout + off;
-  for (int r = warp; r < m; r += kMvnWarps) {
-    float* Lr = L + static_cast<size_t>(r) * m;
-    for (int c0 = lane; c0 < m; c0 += 128) {
-      float v[4];  // four loads in flight before the stores
-#pragma unroll
-      for (int u = 0; u < 4; ++u) v[u] = c0 + 32 * u <= r ? A[r * mp + c0 + 32 * u] : 0.f;
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (c0 + 32 * u < m) Lr[c0 + 32 * u] = v[u];
-    }
-  }
+  gprf::store_lower_cropped(Lout, off, A, m, mp);
 }
 
 cudaError_t configure(size_t smem) {

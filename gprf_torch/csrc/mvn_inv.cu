@@ -7,12 +7,13 @@
 // pair kernel of the MVN+inverse route: with W and Z saved, the backward
 // pass is products only and launches no triangular inverse (K3).
 //
-// Bound: as K2, m sequential steps of shared-memory row updates between
-// block barriers (E = 180 pair blocks at the flagship: two waves over 132
-// SMs), now O(m^2 + m dy + k m) a step.  Design: K2's k-loop carries the
+// Bound: m sequential steps of shared-memory row updates between block
+// barriers (E = 180 pair blocks at the flagship: two waves over 132 SMs),
+// O(m^2 + m dy + k m) a step.  Design: one right-looking k-loop carries the
 // factorization, the dy right-hand sides, the log-determinant and the
-// quadratic form, and K1's folded substitution for W rides the same loop,
-// so each step still costs two barriers.  K, W and Y share the CTA's shared
+// quadratic form, and the substitution for W, folded in as a second rank-1
+// update of a running right-hand side, rides the same loop, so each step
+// costs two barriers.  K, W and Y share the CTA's shared
 // memory ((2 m^2 + m dy + m) floats: m <= 158 at dy = 50); L never leaves
 // the SM, only ll, W (zero above the diagonal) and Z are written.
 #include "common.cuh"

@@ -34,13 +34,14 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes of the exported C functions (pointers, sizes, stream; the
-# last two are occupancy queries)
+# last three are occupancy queries)
 SIGNATURES = {
     "gprf_chol_inv": (_P, _P, _P, _I, _I, _P),
     "gprf_mvn_ll": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gprf_tri_inv": (_P, _P, _I, _I, _P),
     "gprf_mvn_ll_inv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gprf_cholesky": (_P, _P, _I, _I, _P),
+    "gprf_chol_inv_ctas_per_sm": (_I,),
     "gprf_tri_inv_ctas_per_sm": (_I,),
     "gprf_mvn_ctas_per_sm": (_I, _I),
 }

@@ -39,23 +39,34 @@ LOG_2PI = math.log(2.0 * math.pi)
 # Largest dynamic shared memory one CTA may use on the H100 (227 KB).
 SMEM_BYTES = 232_448
 _F32 = 4
-# K1 holds K, the running inverse and one column: (2 m^2 + m) floats.
-MAX_M_CHOL_INV = 168
 # K5 holds K and one column: (m^2 + m) floats.
 MAX_M_CHOL = 240
 # K4's static shared memory (per-warp partial sums of the quadratic form).
 _MVN_STATIC_BYTES = 16 * _F32
-# K2 and K3 work in blocks of NB over m padded to a multiple of NB.
+# K1, K2 and K3 work in blocks of NB over m padded to a multiple of NB.
 NB = 16
-# K2's static shared memory: one NB x NB block (D_k^T) and 8 per-warp
-# partial sums.
-_MVN_BLOCKED_STATIC_BYTES = (NB * NB + 8) * _F32
+# The factor's static shared memory, in K1 and K2: one NB x NB block (D_k^T).
+_FACTOR_STATIC_BYTES = NB * NB * _F32
+# K2's static shared memory: the factor's and 8 per-warp partial sums.
+_MVN_BLOCKED_STATIC_BYTES = _FACTOR_STATIC_BYTES + 8 * _F32
 # K2 and K4 take dy <= 256.
 MAX_DY_MVN = 256
 
 
 def _round_up(n: int, to: int) -> int:
     return -(-n // to) * to
+
+
+def chol_inv_smem_bytes(m: int) -> int:
+    """K1's shared memory: K at the padded width mp (mp^2 floats), which
+    becomes L and then, in place, W = L^-1, and the factor's static block;
+    83,968 B at m = 136."""
+    mp = _round_up(m, NB)
+    return mp * mp * _F32 + _FACTOR_STATIC_BYTES
+
+
+# Largest m whose K1 working set fits the CTA's shared memory: 240.
+MAX_M_CHOL_INV = max(m for m in range(1, 512) if chol_inv_smem_bytes(m) <= SMEM_BYTES)
 
 
 def mvn_smem_bytes(m: int, dy: int) -> int:
@@ -185,11 +196,16 @@ def _stream(t):
 def chol_inv(K):
     """K1: (L, W) with L = chol(K) lower and W = L^-1, for SPD [B, m, m].
 
-    Replaces ``_chol_inv_kernel`` (gprf_tpu/ops/pallas_mvn.py).  On the
-    H100 it is bound by the m sequential steps of the factorization, each
-    paced by the warps' chains of shared-memory accesses to their rows; one
-    CTA per matrix keeps K and the inverse on-chip for the whole k-loop and
-    folds the substitution for W into it (csrc/chol_inv.cu)."""
+    Replaces ``_chol_inv_kernel`` (gprf_tpu/ops/pallas_mvn.py).  Bound by
+    the length of its dependency chain, not by FLOPs or bytes, so it runs
+    K2's blocked factor (ceil(m/16) left-looking block columns, the diagonal
+    block factored in registers) and then K3's blocked inverse (the
+    diagonal blocks at once, then ceil(m/16) - 1 block rows) where it ran
+    m rank-1 steps.  One CTA per matrix keeps one buffer in shared memory:
+    L overwrites K, is stored, and W overwrites L in place, reading L's
+    off-diagonal blocks from the transposes that the factor left above the
+    diagonal.  Two CTAs share an SM at m = 136 (csrc/chol_inv.cu,
+    csrc/blocked.cuh, :func:`chol_inv_smem_bytes`)."""
     if _on_cpu(K):
         return chol_inv_plain(K)
     B, m = _square_batch("chol_inv", K)
@@ -272,11 +288,11 @@ def mvn_ll_inv(Kp, Ym, n_active):
     zero-padded Ym [B, m, dy] and active counts [B], where (m, dy) pass
     :func:`mvn_inv_supported`.
 
-    Replaces ``_mvn_inv_kernel`` (gprf_tpu/ops/pallas_mvn.py).  Bound, like
-    K1, by m sequential steps of shared-memory row updates; K1's folded
-    substitution for W shares the MVN's k-loop, so one pass over K gives ll and
-    both residuals of the backward pass, and L never leaves the SM
-    (csrc/mvn_inv.cu)."""
+    Replaces ``_mvn_inv_kernel`` (gprf_tpu/ops/pallas_mvn.py).  Bound by m
+    sequential steps of shared-memory row updates; the substitution for W
+    is folded into the MVN's k-loop (right-looking on both), so one pass
+    over K gives ll and both residuals of the backward pass, and L never
+    leaves the SM (csrc/mvn_inv.cu)."""
     if _on_cpu(Kp, Ym, n_active):
         return mvn_ll_inv_plain(Kp, Ym, n_active)
     B, m = _square_batch("mvn_ll_inv", Kp)
@@ -301,10 +317,9 @@ def mvn_ll_inv(Kp, Ym, n_active):
 def cholesky(K):
     """K5: lower Cholesky factor L of SPD [B, m, m], m <= 240.
 
-    Replaces ``_chol_kernel`` (gprf_tpu/ops/pallas_mvn.py).  Bound, like
-    K1, by m sequential steps of shared-memory row updates; it is K1's
-    k-loop without the substitution, one CTA per matrix holding K and one
-    column (csrc/chol.cu).  Above its cap it raises, where the TPU
+    Replaces ``_chol_kernel`` (gprf_tpu/ops/pallas_mvn.py).  Bound by m
+    sequential steps of shared-memory row updates, right-looking, one CTA
+    per matrix holding K and one column (csrc/chol.cu).  Above its cap it raises, where the TPU
     pipeline falls back to XLA's Cholesky without a word; callers go
     through :func:`gprf_torch.ops.split_mvn.cholesky_split`, which keeps
     every leaf on the kernels."""

@@ -8,7 +8,7 @@ batched matrix products:
     L21 = K21 W_A^T,  C' = C - L21 L21^T,  W_A = L_A^-1
 
 Each leaf is one kernel launch.  The leaf caps are the kernels' own
-shared-memory caps on the H100 (:data:`LEAF_CHOL` = 168 for K1,
+shared-memory caps on the H100 (:data:`LEAF_CHOL` = 240 for K1,
 :data:`LEAF_TRI` = 224 for K3, :data:`LEAF_CHOLESKY` = 240 for K5,
 :func:`gprf_torch.ops.mvn.mvn_max_m` = 208 at dy = 50 for K2), so the
 flagship width m = 136 goes straight to the kernels and only wider blocks

@@ -48,7 +48,12 @@ def _close(a, b, rtol=RTOL):
     assert np.abs(a - b).max() <= rtol * scale, np.abs(a - b).max() / scale
 
 
-@pytest.mark.parametrize("B,m", [(3, 37), (5, 136), (2, 168), (1, 1), (4, 65)])
+# one block, ragged and full last blocks of K1's 16-wide blocking, the
+# flagship width, the first capacity growth, the former cap, the seismic
+# width and the cap
+@pytest.mark.parametrize("B,m", [(3, 37), (5, 136), (2, 168), (1, 1), (4, 65), (3, 2), (2, 3),
+                                 (3, 15), (3, 16), (3, 17), (3, 33), (5, 152), (2, 192),
+                                 (2, mvn.MAX_M_CHOL_INV)])
 def test_chol_inv_kernel(dev, B, m):
     rng = np.random.default_rng(m)
     K = torch.as_tensor(_spd(rng, B, m), device=dev)
@@ -60,6 +65,119 @@ def test_chol_inv_kernel(dev, B, m):
     _close(L, L_ref)
     _close(W, W_ref)
     assert torch.all(torch.triu(L, 1) == 0) and torch.all(torch.triu(W, 1) == 0)
+
+
+def test_chol_inv_kernel_reads_only_the_lower_triangle(dev):
+    """NaN above K's diagonal changes no bit of L or W: the factor reads
+    the lower triangle only, and the in-place inverse never reads the strict
+    upper parts of the diagonal blocks, which the factor leaves unwritten."""
+    rng = np.random.default_rng(11)
+    K = torch.as_tensor(_spd(rng, 3, 45), device=dev).float()
+    dirty = K + torch.triu(torch.full_like(K, float("nan")), 1)
+    L, W = mvn.chol_inv(K.contiguous())
+    Ld, Wd = mvn.chol_inv(dirty.contiguous())
+    torch.cuda.synchronize()
+    assert torch.isfinite(Ld).all() and torch.isfinite(Wd).all()
+    assert torch.equal(Ld, L) and torch.equal(Wd, W)
+    L_ref, W_ref = mvn.chol_inv_plain(torch.tril(K.double()) + torch.tril(K.double(), -1).mT)
+    _close(Ld, L_ref)
+    _close(Wd, W_ref)
+
+
+def test_chol_inv_kernel_keeps_identity_padding_exact(dev):
+    B, m = 4, 136
+    n_active = np.array([136, 100, 97, 40])
+    rng = np.random.default_rng(5)
+    K = torch.as_tensor(_spd(rng, B, m, n_active), device=dev)
+    L, W = mvn.chol_inv(K.float())
+    torch.cuda.synchronize()
+    for got, ref in zip((L, W), mvn.chol_inv_plain(K)):
+        _close(got, ref)
+        for b, n in enumerate(n_active):
+            assert torch.all(got[b, n:, n:] == torch.eye(m - n, device=dev))
+            assert torch.all(got[b, n:, :n] == 0)
+
+
+def _chol_inv_steps(K):
+    """(L, W) by the two step loops of ``_chol_inv_kernel``
+    (gprf_tpu/ops/pallas_mvn.py), one [m, m] block in float64: the factor
+    scales column k by d = rsqrt(max(a_kk, 1e-30)) (so L_kk = a_kk d); the
+    substitution for W divides row k by L_kk where |L_kk| > 1e-30, else by
+    1e-30."""
+    A = K.clone()
+    m = K.shape[0]
+    idx = torch.arange(m)
+    for k in range(m):
+        d = torch.rsqrt(torch.clamp(A[k, k], min=1e-30))
+        col = torch.where(idx >= k, A[k] * d, 0.0)
+        A[k] = col
+        colu = torch.where(idx > k, col, 0.0)
+        A = A - torch.outer(colu, colu)
+    L = torch.tril(A.mT)
+    W = torch.zeros_like(L)
+    eye = torch.eye(m, dtype=K.dtype)
+    for k in range(m):
+        lkk = L[k, k]
+        W[k] = (eye[k] - L[k] @ W) / (lkk if abs(float(lkk)) > 1e-30 else 1e-30)
+    return L, W
+
+
+def test_chol_inv_kernel_clamps_pivots_like_the_tpu_kernel(dev):
+    """A pivot of 1e-31 and a negative pivot, each with nonzero entries below
+    it: the factor scales their columns by rsqrt(max(a_kk, 1e-30)), so L_kk
+    is 1e-31 * 1e15 = 1e-16 and -0.5e15, and W divides by those L_kk (not
+    by 1/d, which the factor's panel solve uses), as the TPU kernel's steps
+    do.  W reaches 1e16, so it is compared entry by entry, relative."""
+    rng = np.random.default_rng(10)
+    B, m = 2, 37
+    K = _spd(rng, B, m)
+    for p, v in ((5, 1e-31), (20, -0.5)):  # in block columns 0 and 1
+        K[:, p, :p] = K[:, :p, p] = 0.0
+        K[:, p, p] = v
+        K[:, p + 1:, p] = K[:, p, p + 1:] = 1e-16 * rng.normal(size=(B, m - p - 1))
+    K = K.astype(np.float32).astype(np.float64)  # the kernel's inputs, exactly
+    L, W = mvn.chol_inv(torch.as_tensor(K, dtype=torch.float32, device=dev))
+    torch.cuda.synchronize()
+    for b in range(B):
+        L_ref, W_ref = _chol_inv_steps(torch.as_tensor(K[b]))
+        assert float(L_ref[20, 20]) < -1e14 and 0.0 < float(L_ref[5, 5]) < 1e-15
+        assert float(W_ref[5, 5]) > 1e15 and -1e-14 < float(W_ref[20, 20]) < 0.0
+        for got, ref in ((L[b], L_ref), (W[b], W_ref)):
+            err = (got.double().cpu() - ref).abs() / (ref.abs() + 1.0)
+            assert float(err.max()) <= 1e-4
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_chol_inv_kernel_takes_views_at_any_offset(dev, offset):
+    """K1 copies K by 4-byte cp.async, as K2 does, so a contiguous view that
+    starts off a 16-byte boundary is taken as it is."""
+    rng = np.random.default_rng(13)
+    K = torch.as_tensor(_spd(rng, 3, 36), device=dev)
+    flat = torch.zeros(K.numel() + offset, device=dev)
+    flat[offset:] = K.float().flatten()
+    L, W = mvn.chol_inv(flat[offset:].view(K.shape))
+    torch.cuda.synchronize()
+    L_ref, W_ref = mvn.chol_inv_plain(K)
+    _close(L, L_ref)
+    _close(W, W_ref)
+
+
+def test_chol_inv_kernel_refuses_past_its_cap(dev):
+    cap = mvn.MAX_M_CHOL_INV
+    assert cap >= 192
+    L, W = mvn.chol_inv(torch.eye(cap, device=dev)[None])
+    torch.cuda.synchronize()
+    assert torch.equal(L[0], torch.eye(cap, device=dev)) and torch.equal(W, L)
+    with pytest.raises(ValueError):
+        mvn.chol_inv(torch.eye(cap + 1, device=dev)[None])
+
+
+def test_chol_inv_kernel_fits_two_ctas_an_sm_at_the_flagship(dev):
+    from gprf_torch.ops import _build
+
+    lib = _build.load().lib
+    assert lib.gprf_chol_inv_ctas_per_sm(136) == 2
+    assert lib.gprf_chol_inv_ctas_per_sm(mvn.MAX_M_CHOL_INV) == 1
 
 
 # ragged and full last blocks of K3's 16-wide blocking, the flagship width,
@@ -341,11 +459,13 @@ def test_functions_backward_match_twin_autograd(dev):
 
 def test_split_on_card_matches_twin(dev):
     rng = np.random.default_rng(2)
-    B, m, dy = 3, 200, 50  # forces chol_inv splits at the 168 leaf cap
+    B, m, dy = 3, 200, 50  # under K1's cap: the leaf of 96 forces chol_inv splits
     K = torch.as_tensor(_spd(rng, B, m), device=dev)
     Y = torch.as_tensor(rng.normal(size=(B, m, dy)), device=dev)
     na = torch.full((B,), float(m), device=dev, dtype=torch.float64)
-    L, W = chol_inv_split(K.float())
+    mvn.reset_launch_counts()
+    L, W = chol_inv_split(K.float(), leaf=96)
+    assert mvn.launch_counts["chol_inv"] == 3  # 104 -> 56 + 48, and 96
     _close(L, mvn.chol_inv_plain(K)[0])
     _close(tri_inv_split(L), W)
     _close(mvn_ll_split(K.float(), Y.float(), na.float(), leaf_mvn=96),
@@ -370,7 +490,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         mvn.tri_inv(K.mT)  # not contiguous
     with pytest.raises(ValueError):
-        mvn.chol_inv(torch.eye(170, device=dev)[None])
+        mvn.chol_inv(torch.eye(mvn.MAX_M_CHOL_INV + 1, device=dev)[None])
     with pytest.raises(ValueError):
         mvn.mvn_ll(K, torch.zeros(2, 8, 3, device=dev), torch.zeros(3, device=dev))
     with pytest.raises(ValueError):

@@ -178,8 +178,14 @@ def test_twin_gives_nan_on_non_pd_like_jax(rng):
 
 def test_kernel_caps_follow_shared_memory():
     """The caps the wrappers enforce are what 227 KB of shared memory holds."""
+    # K1: one buffer at the padded width mp (K, then L, then W in place) and
+    # the factor's 16 x 16 block of static shared memory
     m = mvn.MAX_M_CHOL_INV
-    assert (2 * m * m + m) * 4 <= mvn.SMEM_BYTES
+    assert mvn.chol_inv_smem_bytes(m) <= mvn.SMEM_BYTES < mvn.chol_inv_smem_bytes(m + 1)
+    assert mvn.chol_inv_smem_bytes(136) == 144 * 144 * 4 + 16 * 16 * 4 == 83_968
+    assert m == 240 >= 192
+    # two CTAs an SM at the flagship: 228 KB of the SM's shared memory, 1 KB reserved a CTA
+    assert 2 * (mvn.chol_inv_smem_bytes(136) + 1024) <= 233_472
     m = mvn.MAX_M_TRI_INV  # W at the padded width and two 16-row panels of L
     assert mvn.tri_inv_smem_bytes(m) <= mvn.SMEM_BYTES < mvn.tri_inv_smem_bytes(m + 1)
     assert mvn.tri_inv_smem_bytes(136) == (144 * 144 + 2 * 16 * 144) * 4 == 101_376
@@ -193,10 +199,9 @@ def test_kernel_caps_follow_shared_memory():
         mp, dyp = -(-m // 16) * 16, -(-dy // 4) * 4
         assert mvn.mvn_smem_bytes(m, dy) == (mp * mp + mp * dyp) * 4 + (16 * 16 + 8) * 4
     assert mvn.mvn_smem_bytes(136, 50) == (144 * 144 + 144 * 52) * 4 + 1056 == 113_952
-    # two CTAs an SM at the flagship: 228 KB of the SM's shared memory, 1 KB reserved a CTA
-    assert 2 * (mvn.mvn_smem_bytes(136, 50) + 1024) <= 233_472
+    assert 2 * (mvn.mvn_smem_bytes(136, 50) + 1024) <= 233_472  # two CTAs an SM, as K1
     assert (mvn.mvn_max_m(1), mvn.mvn_max_m(256)) == (224, 144)
-    assert 136 <= mvn.MAX_M_CHOL_INV and 200 <= mvn.mvn_max_m(50)
+    assert 168 <= mvn.MAX_M_CHOL_INV and 200 <= mvn.mvn_max_m(50)
 
 
 def test_wrappers_refuse_other_devices():

@@ -172,9 +172,28 @@ def test_flagship_width_needs_no_split():
                         _t([136.0, 136.0]), ops=ops)
     assert calls == [136, 136]
     calls.clear()
-    wide = torch.eye(176, dtype=torch.float64).expand(1, 176, 176)
+    wide = torch.eye(248, dtype=torch.float64).expand(1, 248, 248)
     tsplit.chol_inv_split(wide, ops=ops)
-    assert calls == [88, 88]
+    assert calls == [128, 120]
+
+
+@pytest.mark.parametrize("m", [176, 192, mvn.MAX_M_CHOL_INV, mvn.MAX_M_CHOL_INV + 8])
+def test_chol_inv_leaf_follows_the_k1_cap(m):
+    """The chol_inv leaf is K1's shared-memory cap, 240 for the blocked
+    kernel: the seismic width 192 and every capacity growth up to the cap
+    stay one K1 launch, and wider blocks split at split_point(m)."""
+    assert tsplit.LEAF_CHOL == mvn.MAX_M_CHOL_INV == 240
+    calls = []
+    ops = mvn.Ops(chol_inv=lambda K: calls.append(K.shape[-1]) or mvn.chol_inv_plain(K),
+                  mvn_ll=mvn.PLAIN_OPS.mvn_ll, tri_inv=mvn.tri_inv_plain)
+    rng = np.random.default_rng(m)
+    K = _t(_spd(rng, 2, m))
+    L, W = tsplit.chol_inv_split(K, ops=ops)
+    h = tsplit.split_point(m)
+    assert calls == ([m] if m <= mvn.MAX_M_CHOL_INV else [h, m - h])
+    L_ref, W_ref = mvn.chol_inv_plain(K)
+    np.testing.assert_allclose(L.numpy(), L_ref.numpy(), rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(W.numpy(), W_ref.numpy(), rtol=1e-9, atol=1e-12)
 
 
 @pytest.mark.parametrize("m", [200, 208, 209, 216])
