@@ -15,12 +15,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
              of the one PyTorch call that computes the same function where
              there is one (K3, K5), and the kernel's bound from its FLOPs
              and bytes.  K5 takes K1's unary inputs and K4 takes K2's pair
-             inputs.  K1 also at m=152 and at its cap m=240 on seeded
-             inputs, with its CTAs per SM; K2 also at m=152 (the first capacity growth) and at
-             its cap m=208 (dy=50) on seeded inputs, with its CTAs per
-             SM; K3 also at m=152 and at its
-             cap m=224 on seeded factors, and cholesky_split at [4,248,248]
-             (past K5's cap: K5 leaves and K3) against the twin's Cholesky.
+             inputs.  Each also at m=152 (the first capacity growth) and at
+             its cap on seeded inputs, with its CTAs per SM: K1 and K5 at
+             m=240, K2 and K4 at m=208 (dy=50), K3 at m=224; K1, K2, K4 and
+             K5 must fit 2 CTAs an SM at m=136.  cholesky_split at
+             [4,248,248] (past K5's cap: K5 leaves and K3) against the
+             twin's Cholesky.
 4. routes  - the flagship problem (synthetic n=10,000, 100 grid blocks
              padded to m=136, 180 axis-only edges, dy=50, task=x) on each
              route of the objective (ROUTES): one loss+grad with the
@@ -66,12 +66,13 @@ ROUTES = {
     "unary_doubling": (dict(mvn_inv=False, unary_doubling=True), 1,
                        ("cholesky", "mvn_ll", "tri_inv"), ("chol_inv", "mvn_ll_inv")),
 }
-# K1 widths checked beyond the flagship's: the first capacity growth and the cap
+# K1 and K5 (K1's kernel) widths checked beyond the flagship's: the first
+# capacity growth and the cap
 CHOL_INV_WIDTHS = (152, 240)
 # K3 widths checked beyond the flagship's: the first capacity growth and the cap
 TRI_INV_WIDTHS = (152, 224)
-# K2 widths checked beyond the flagship's: the first capacity growth and the
-# cap at dy = 50 (mvn_max_m)
+# K2 and K4 (K2's working set) widths checked beyond the flagship's: the first
+# capacity growth and the cap at dy = 50 (mvn_max_m, mvn_inv_supported)
 MVN_WIDTHS = (152, 208)
 # cholesky_split's check: wider than K5's cap (240), so it splits
 CHOL_SPLIT_SHAPE = (4, 248)
@@ -201,7 +202,8 @@ def flagship_inputs(fused, x_flat, torch):
 def compare(c, args, torch):
     """One kernel against its twin on the same inputs: forward normwise rel
     err, backward rel err, forward max abs err, kernel ms, twin ms, the
-    library call's ms (None where there is none) and the bound.  The
+    library call's ms (None where there is none), the bound, and the
+    kernel's ms on the first matrix alone.  The
     backward is the Function's analytic pullback against PyTorch's autograd
     through the twin, under the same cotangents; only the matrix inputs are
     differentiated (n_active is a count)."""
@@ -223,6 +225,8 @@ def compare(c, args, torch):
         grads.append(torch.autograd.grad(out, diff, cots))
     bwd = max(rel_err(a, b) for a, b in zip(*grads))
     ms = median_ms(lambda: c["kernel"](*args), torch)
+    one = tuple(a[:1] for a in args)  # one CTA with the card to itself: the chain's length
+    one_matrix_ms = median_ms(lambda: c["kernel"](*one), torch)
     plain_ms = median_ms(lambda: c["plain"](*args), torch)
     library_ms = median_ms(lambda: c["library"](*args), torch) if c.get("library") else None
     if not (fwd <= RTOL_FWD and bwd <= RTOL_BWD):
@@ -231,11 +235,12 @@ def compare(c, args, torch):
                              f"(limit {RTOL_BWD})")
     bound_ms, bound_by = bound(c["name"], args)
     r = dict(fwd_rel_err=fwd, bwd_rel_err=bwd, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+             one_matrix_ms=one_matrix_ms)
     log(f"kernel {c['name']} {[tuple(a.shape) for a in args]}: fwd rel err {fwd:.3e}, "
         f"bwd rel err {bwd:.3e}, {ms:.4f} ms vs twin {plain_ms:.4f} ms, library "
         f"{'-' if library_ms is None else f'{library_ms:.4f} ms'}, bound {bound_ms:.4f} ms "
-        f"({bound_by})")
+        f"({bound_by}); one matrix alone {one_matrix_ms:.4f} ms")
     return r
 
 
@@ -308,7 +313,7 @@ def check_kernels(fused, x_flat, torch):
             args=inputs["mvn_ll_inv"], kernel=mvn.mvn_ll_inv, plain=mvn.mvn_ll_inv_plain,
             fn=mvn.MvnLLInv.apply, cot=lambda out: [randn_like(out[0])]),
         "cholesky": dict(
-            source="gprf_torch/csrc/chol.cu", replaces="gprf_tpu/ops/pallas_mvn.py:144",
+            source="gprf_torch/csrc/chol_inv.cu", replaces="gprf_tpu/ops/pallas_mvn.py:144",
             args=inputs["cholesky"], kernel=mvn.cholesky, plain=mvn.cholesky_plain,
             fn=mvn.Cholesky.apply, cot=lambda out: [randn_like(out[0])],
             library=lambda K: torch.linalg.cholesky_ex(K)),
@@ -319,47 +324,48 @@ def check_kernels(fused, x_flat, torch):
         report[name] = dict(name=name, route="cuda", source=c["source"], replaces=c["replaces"],
                             launches=0, **compare(c, c["args"], torch))
 
-    # K1 past the flagship width, on as many matrices as the flagship has blocks
+    # Every kernel past the flagship width, on as many matrices as the
+    # flagship has unary blocks (K1, K5) or pairs (K2, K3, K4):
+    # name -> (widths, the cap, CTAs per SM at width m, inputs at width m)
     lib = _build.load().lib
-    if mvn.MAX_M_CHOL_INV != CHOL_INV_WIDTHS[-1]:
-        raise AssertionError(f"K1's cap is {mvn.MAX_M_CHOL_INV}, not {CHOL_INV_WIDTHS[-1]}")
-    B = inputs["chol_inv"][0].shape[0]
-    report["chol_inv"]["ctas_per_sm"] = lib.gprf_chol_inv_ctas_per_sm(M0)
-    report["chol_inv"]["widths"] = []
-    for m in CHOL_INV_WIDTHS:
-        K, _ = seeded_factors(B, m, gen, torch, dev)
-        report["chol_inv"]["widths"].append(dict(
-            shape=[B, m, m], ctas_per_sm=lib.gprf_chol_inv_ctas_per_sm(m),
-            **compare(cases["chol_inv"], (K.float().contiguous(),), torch)))
+    n_unary, n_pair = inputs["chol_inv"][0].shape[0], inputs["mvn_ll"][0].shape[0]
 
-    # K2 and K3 past the flagship width, on as many matrices as the flagship has pairs
-    B = inputs["tri_inv"][0].shape[0]
-    if mvn.mvn_max_m(DY) != MVN_WIDTHS[-1]:
-        raise AssertionError(f"K2's cap at dy={DY} is {mvn.mvn_max_m(DY)}, not {MVN_WIDTHS[-1]}")
-    report["mvn_ll"]["ctas_per_sm"] = lib.gprf_mvn_ctas_per_sm(M0, DY)
-    report["mvn_ll"]["widths"] = []
-    for m in MVN_WIDTHS:
-        args = seeded_mvn_inputs(B, m, gen, torch, dev)
-        report["mvn_ll"]["widths"].append(dict(
-            shape=[B, m, m, DY], ctas_per_sm=lib.gprf_mvn_ctas_per_sm(m, DY),
-            **compare(cases["mvn_ll"], args, torch)))
-    report["tri_inv"]["ctas_per_sm"] = lib.gprf_tri_inv_ctas_per_sm(M0)
-    report["tri_inv"]["widths"] = []
-    for m in TRI_INV_WIDTHS:
-        _, L = seeded_factors(B, m, gen, torch, dev)
-        report["tri_inv"]["widths"].append(dict(
-            shape=[B, m, m], ctas_per_sm=lib.gprf_tri_inv_ctas_per_sm(m),
-            **compare(cases["tri_inv"], (L,), torch)))
-    log(f"CTAs per SM: K1 at m={M0}: {report['chol_inv']['ctas_per_sm']}, at "
-        f"{CHOL_INV_WIDTHS}: {[w['ctas_per_sm'] for w in report['chol_inv']['widths']]}; "
-        f"K2 at m={M0}, dy={DY}: {report['mvn_ll']['ctas_per_sm']}, at "
-        f"{MVN_WIDTHS}: {[w['ctas_per_sm'] for w in report['mvn_ll']['widths']]}; K3 at "
-        f"m={M0}: {report['tri_inv']['ctas_per_sm']}, at {TRI_INV_WIDTHS}: "
-        f"{[w['ctas_per_sm'] for w in report['tri_inv']['widths']]}")
-    for k, name in (("K1", "chol_inv"), ("K2", "mvn_ll")):
+    def unary_blocks(m):
+        return (seeded_factors(n_unary, m, gen, torch, dev)[0].float().contiguous(),)
+
+    def pair_inputs(m):
+        return seeded_mvn_inputs(n_pair, m, gen, torch, dev)
+
+    wide = {
+        "chol_inv": (CHOL_INV_WIDTHS, mvn.MAX_M_CHOL_INV, lib.gprf_chol_inv_ctas_per_sm,
+                     unary_blocks),
+        "mvn_ll": (MVN_WIDTHS, mvn.mvn_max_m(DY), lambda m: lib.gprf_mvn_ctas_per_sm(m, DY),
+                   pair_inputs),
+        "tri_inv": (TRI_INV_WIDTHS, mvn.MAX_M_TRI_INV, lib.gprf_tri_inv_ctas_per_sm,
+                    lambda m: (seeded_factors(n_pair, m, gen, torch, dev)[1],)),
+        "mvn_ll_inv": (MVN_WIDTHS, max(m for m in range(512) if mvn.mvn_inv_supported(m, DY)),
+                       lambda m: lib.gprf_mvn_inv_ctas_per_sm(m, DY), pair_inputs),
+        # K5 runs K1's kernel, so K1's query answers for it
+        "cholesky": (CHOL_INV_WIDTHS, mvn.MAX_M_CHOL, lib.gprf_chol_inv_ctas_per_sm,
+                     unary_blocks),
+    }
+    for name, (widths, cap, ctas_per_sm, make_inputs) in wide.items():
+        if cap != widths[-1]:
+            raise AssertionError(f"{name}'s cap is {cap}, not {widths[-1]}")
+        report[name]["ctas_per_sm"] = ctas_per_sm(M0)
+        report[name]["widths"] = []
+        for m in widths:
+            args = make_inputs(m)
+            report[name]["widths"].append(dict(
+                shape=list(args[0].shape) + [a.shape[-1] for a in args[1:2]],
+                ctas_per_sm=ctas_per_sm(m), **compare(cases[name], args, torch)))
+        log(f"CTAs per SM, {name}: {report[name]['ctas_per_sm']} at m={M0}, "
+            f"{[w['ctas_per_sm'] for w in report[name]['widths']]} at {widths}")
+    # the blocked designs that keep one working set need two CTAs an SM at the flagship
+    for name in ("chol_inv", "mvn_ll", "mvn_ll_inv", "cholesky"):
         if report[name]["ctas_per_sm"] < 2:
-            raise AssertionError(f"{k} fits {report[name]['ctas_per_sm']} CTAs an SM at m={M0}; "
-                                 "its design needs 2")
+            raise AssertionError(f"{name} fits {report[name]['ctas_per_sm']} CTAs an SM at "
+                                 f"m={M0}; its design needs 2")
     report["cholesky"]["split"] = check_cholesky_split(gen, torch, dev)
     return report
 

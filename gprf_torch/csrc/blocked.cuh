@@ -1,13 +1,17 @@
-// The device phases of the blocked kernels (K1 chol_inv.cu, K2 mvn.cu).
+// The device phases of the blocked kernels: K1 (the factor, then the inverse)
+// and K5 (the factor alone) in chol_inv.cu, K2 mvn.cu (the factor with
+// right-hand sides) and K4 mvn_inv.cu (the factor with right-hand sides, then
+// the inverse).
 //
 // One CTA of kBlockThreads owns one matrix in a shared-memory buffer A of
 // mp x mp floats, mp = 16 ceil(m/16), padded with identity rows.  Two phases
 // work on it, in blocks of kNb = 16:
 //
-//  * The factor (factor_diagonal, update_tile, solve_tile), left-looking over
-//    the block columns, with an optional buffer Z of mp x dyp right-hand
-//    sides that is solved along (dyp = 0: none).  It leaves L in A's lower
-//    triangle and, in A's upper triangle, the transpose of every finished
+//  * The factor (factor_blocks: factor_diagonal, update_tile, solve_tile),
+//    left-looking over the block columns, with an optional buffer Z of
+//    mp x dyp right-hand sides that is solved along (dyp = 0: none; dy is
+//    padded with zero columns to dyp = 4 ceil(dy/4)).  It leaves L in A's
+//    lower triangle and, in A's upper triangle, the transpose of every finished
 //    off-diagonal block: A[p * mp + o + r] = L[o + r, p] for p left of the
 //    block at offset o.  The strict upper parts of the diagonal blocks are
 //    never written and never read.
@@ -24,6 +28,7 @@ namespace gprf {
 constexpr int kNb = 16;
 constexpr int kBlockThreads = 256;
 constexpr int kBlockWarps = kBlockThreads / 32;
+constexpr float kLog2Pi = 1.8378770664093453f;
 
 __host__ __device__ constexpr int round_up(int n, int to) { return (n + to - 1) / to * to; }
 
@@ -41,6 +46,26 @@ __device__ __forceinline__ void load_lower_row(float* A, const float* K, int r, 
   } else {
     for (int c = threadIdx.x & 31; c <= r; c += 32) A[r * mp + c] = c == r ? 1.f : 0.f;
   }
+}
+
+// The lower triangle of K (identity past m) into A; a warp a row
+__device__ __forceinline__ void load_lower(float* A, const float* K, int m, int mp) {
+  for (int r = threadIdx.x >> 5; r < mp; r += kBlockWarps) load_lower_row(A, K, r, m, mp);
+  cp_async_commit();
+  cp_async_wait_all();
+}
+
+// The lower triangle of K (identity past m) into A and Y (zero past m, dy)
+// into Z; a warp a row.
+__device__ __forceinline__ void load_inputs(float* A, float* Z, const float* K, const float* Y,
+                                            int m, int mp, int dy, int dyp) {
+  const int warp = threadIdx.x >> 5;
+  for (int r = warp; r < mp; r += kBlockWarps) {
+    load_lower_row(A, K, r, m, mp);
+    copy_row(Z + r * dyp, Y + static_cast<size_t>(min(r, m - 1)) * dy, r < m ? dy : 0, dyp);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
 }
 
 // Warp 0: the diagonal block at offset o, updated by the finished columns
@@ -214,6 +239,46 @@ __device__ __forceinline__ void solve_tile(float* A, float* Z, const float* DT, 
   }
 }
 
+// All warps: the factor, left-looking over the nblk block columns, two
+// barriers each.  Warp 0 factors the diagonal block while warps 1.. update
+// the panel and Z's block row; then all solve them with D_k.  A and Z must
+// be loaded and a barrier passed; a barrier ends it.  Returns the
+// log-determinant on warp 0.
+__device__ __forceinline__ float factor_blocks(float* A, float* Z, float* DT, int mp, int dyp,
+                                               int nblk) {
+  const int warp = threadIdx.x >> 5;
+  float logdet = 0.f;
+  for (int k = 0; k < nblk; ++k) {
+    const int tiles = tile_count(k, nblk, dyp);
+    if (warp == 0)
+      logdet = factor_diagonal(A, DT, mp, kNb * k, logdet);
+    else if (k > 0)
+      for (int t = warp - 1; t < tiles; t += kBlockWarps - 1)
+        update_tile(A, Z, mp, dyp, k, nblk, t);
+    __syncthreads();
+    for (int t = warp; t < tiles; t += kBlockWarps) solve_tile(A, Z, DT, mp, dyp, k, nblk, t);
+    __syncthreads();
+  }
+  return logdet;
+}
+
+// This warp's share of |Z|^2 over Z's n floats, to partial[warp]; the next
+// barrier publishes it.
+__device__ __forceinline__ void quad_form_partial(const float* Z, int n, float* partial) {
+  float quad = 0.f;
+  for (int idx = threadIdx.x; idx < n; idx += kBlockThreads) quad += Z[idx] * Z[idx];
+  for (int s = 16; s > 0; s >>= 1) quad += __shfl_down_sync(0xffffffffu, quad, s);
+  if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = quad;
+}
+
+// The masked log-density from the published partial sums of |L^-1 Y|^2
+__device__ __forceinline__ float mvn_log_density(const float* partial, int dy, float logdet,
+                                                 float n_active) {
+  float q = 0.f;
+  for (int w = 0; w < kBlockWarps; ++w) q += partial[w];
+  return -0.5f * q - 0.5f * dy * logdet - 0.5f * dy * n_active * kLog2Pi;
+}
+
 // Rows 0..m-1 of A's lower triangle to the [m, m] matrix at base + off,
 // zeros above the diagonal; a warp a row.  The batch's array and the
 // matrix's offset come apart: with their sum formed by the caller, ptxas
@@ -233,6 +298,17 @@ __device__ __forceinline__ void store_lower_cropped(float* __restrict__ base, si
         if (c0 + 32 * u < m) Dr[c0 + 32 * u] = v[u];
     }
   }
+}
+
+// Rows 0..m-1 and columns 0..dy-1 of Z (row stride dyp) to the [m, dy]
+// matrix at base + off; a warp a row.  The array and the offset come apart
+// as in store_lower_cropped.
+__device__ __forceinline__ void store_rows_cropped(float* __restrict__ base, size_t off,
+                                                   const float* Z, int m, int dy, int dyp) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* dst = base + off;
+  for (int r = warp; r < m; r += kBlockWarps)
+    for (int c = lane; c < dy; c += 32) dst[static_cast<size_t>(r) * dy + c] = Z[r * dyp + c];
 }
 
 // In place: every diagonal block L_bb of A's lower triangle becomes
@@ -321,6 +397,46 @@ __device__ __forceinline__ void inverse_block_row(float* A, int mp, int i) {
       *reinterpret_cast<float4*>(Tij + (2 * rp + e) * mp) =
           make_float4(-out[e][0], -out[e][1], -out[e][2], -out[e][3]);
   }
+}
+
+// Host side.  Dynamic shared memory of a kernel at (m, dy): A and, with
+// dy > 0, Z.
+inline size_t smem_bytes(int m, int dy) {
+  const size_t mp = round_up(m, kNb), dyp = round_up(dy, 4);
+  return (mp * mp + mp * dyp) * sizeof(float);
+}
+
+// Let `kernel` take `smem` bytes of dynamic shared memory, and give the SM's
+// whole unified memory to shared memory, so that two CTAs fit.
+template <typename Kernel>
+cudaError_t configure(Kernel kernel, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// CTAs of `kernel` resident on one SM with `smem` bytes each (negative: a
+// CUDA error code)
+template <typename Kernel>
+int ctas_per_sm(Kernel kernel, size_t smem) {
+  cudaError_t e = configure(kernel, smem);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kBlockThreads, smem);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+// Configure `kernel`, launch it with one CTA per matrix on `stream`, and
+// return the launch status (a cudaError_t; 0: launched, or an empty batch).
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int batch, size_t smem, void* stream, Args... args) {
+  const cudaError_t e = configure(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (batch == 0) return 0;
+  kernel<<<batch, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace gprf

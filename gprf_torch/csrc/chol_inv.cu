@@ -1,11 +1,14 @@
-// K1: fused Cholesky + triangular inverse, (L, W = L^-1) of SPD [B, m, m].
+// K1: fused Cholesky + triangular inverse, (L, W = L^-1) of SPD [B, m, m],
+// and K5: the Cholesky factor L alone, which is K1 up to its store of L.
 //
-// Replaces the TPU kernel _chol_inv_kernel (gprf_tpu/ops/pallas_mvn.py),
+// K1 replaces the TPU kernel _chol_inv_kernel (gprf_tpu/ops/pallas_mvn.py),
 // which runs the batch in the 128-wide lane axis and walks m sequential
-// steps over a [m, m, 128] VMEM tile, twice.  On the H100 one CTA owns one
-// matrix instead (B = 100 unary blocks at the flagship: one wave over 132
-// SMs).  Only the lower triangle of K is read; L and W have exact zeros
-// above the diagonal.  The factor scales column j by the TPU kernel's
+// steps over a [m, m, 128] VMEM tile, twice.  K5 replaces _chol_kernel, the
+// first of those walks alone, which the unary-doubling route of the
+// objective runs for every unary block.  On the H100 one CTA owns one matrix
+// instead (B = 100 unary blocks at the flagship: one wave over 132 SMs).
+// Only the lower triangle of K is read; L and W have exact zeros above the
+// diagonal.  The factor scales column j by the TPU kernel's
 // d_j = rsqrt(max(a_jj, 1e-30)), so L_jj = a_jj d_j, and the inverse divides
 // by the guarded 1 / (|L_jj| > 1e-30 ? L_jj : 1e-30); f32 throughout.
 //
@@ -23,7 +26,7 @@
 //     1-7 update the panel, then all warps solve the panel with D_k; two
 //     barriers a block column.  L is then in A's lower triangle and the
 //     transposes of its off-diagonal blocks above the diagonal.
-//  2. L is stored.
+//  2. L is stored.  K5 (Wout == nullptr) ends here.
 //  3. The inverse in place, K3's algorithm: the diagonal blocks are
 //     inverted at once, a half-warp each, from L_kk by the guarded
 //     reciprocal (not from D_k: at a clamped pivot 1/d_j is not L_jj); then
@@ -38,20 +41,16 @@
 // (the diagonal factor's 16 dependent pivots and, as k grows, its 16 k deep
 // contraction on warp 0), the solves 8k, the store of L 8k, the diagonal
 // inversions 4k, the block rows 21k, the store of W 8k; 0.056 ms for the
-// flagship's 100 matrices.
+// flagship's 100 matrices.  K5 is one kernel with K1 and not a second one or
+// a template: the factor sits at the 128-register cap, and the same lines
+// compiled alone, or as chol_inv_kernel<false>, spill 8 bytes there.
 #include "blocked.cuh"
 
 namespace {
 
 using gprf::kBlockThreads;
-using gprf::kBlockWarps;
 using gprf::kNb;
 using gprf::round_up;
-
-size_t smem_bytes(int m) {
-  const size_t mp = round_up(m, kNb);
-  return mp * mp * sizeof(float);
-}
 
 __global__ void __launch_bounds__(kBlockThreads, 2)
 chol_inv_kernel(const float* __restrict__ Kin, float* __restrict__ Lout,
@@ -61,26 +60,13 @@ chol_inv_kernel(const float* __restrict__ Kin, float* __restrict__ Lout,
   float* A = reinterpret_cast<float*>(smem4);
   const int mp = round_up(m, kNb), nblk = mp / kNb;
   const size_t off = static_cast<size_t>(blockIdx.x) * m * m;
-  const int warp = threadIdx.x >> 5;
 
-  for (int r = warp; r < mp; r += kBlockWarps) gprf::load_lower_row(A, Kin + off, r, m, mp);
-  gprf::cp_async_commit();
-  gprf::cp_async_wait_all();
+  gprf::load_lower(A, Kin + off, m, mp);
   __syncthreads();
 
-  for (int k = 0; k < nblk; ++k) {
-    const int tiles = gprf::tile_count(k, nblk, 0);
-    if (warp == 0)
-      gprf::factor_diagonal(A, DT, mp, kNb * k, 0.f);
-    else if (k > 0)
-      for (int t = warp - 1; t < tiles; t += kBlockWarps - 1)
-        gprf::update_tile(A, nullptr, mp, 0, k, nblk, t);
-    __syncthreads();
-    for (int t = warp; t < tiles; t += kBlockWarps)
-      gprf::solve_tile(A, nullptr, DT, mp, 0, k, nblk, t);
-    __syncthreads();
-  }
+  gprf::factor_blocks(A, nullptr, DT, mp, 0, nblk);
   gprf::store_lower_cropped(Lout, off, A, m, mp);
+  if (Wout == nullptr) return;  // K5: the factor alone
   __syncthreads();  // L is read out before W lands on it
 
   gprf::invert_diagonal_blocks(A, mp, nblk);
@@ -92,33 +78,19 @@ chol_inv_kernel(const float* __restrict__ Kin, float* __restrict__ Lout,
   gprf::store_lower_cropped(Wout, off, A, m, mp);
 }
 
-cudaError_t configure(size_t smem) {
-  cudaError_t e = cudaFuncSetAttribute(
-      chol_inv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  // the whole of the SM's unified memory as shared memory, so that two CTAs fit
-  return cudaFuncSetAttribute(chol_inv_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
-}
-
 }  // namespace
 
 extern "C" int gprf_chol_inv(const float* K, float* L, float* W, int batch, int m,
                              void* stream) {
-  const size_t smem = smem_bytes(m);
-  cudaError_t e = configure(smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (batch == 0) return 0;
-  chol_inv_kernel<<<batch, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(K, L, W, m);
-  return static_cast<int>(cudaGetLastError());
+  return gprf::launch(chol_inv_kernel, batch, gprf::smem_bytes(m, 0), stream, K, L, W, m);
 }
 
-// CTAs of K1 resident on one SM at width m (negative: a CUDA error code)
+extern "C" int gprf_cholesky(const float* K, float* L, int batch, int m, void* stream) {
+  return gprf::launch(chol_inv_kernel, batch, gprf::smem_bytes(m, 0), stream, K, L,
+                      static_cast<float*>(nullptr), m);
+}
+
+// CTAs of K1 and K5 resident on one SM at width m (negative: a CUDA error code)
 extern "C" int gprf_chol_inv_ctas_per_sm(int m) {
-  const size_t smem = smem_bytes(m);
-  cudaError_t e = configure(smem);
-  int n = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, chol_inv_kernel, kBlockThreads, smem);
-  return e == cudaSuccess ? n : -static_cast<int>(e);
+  return gprf::ctas_per_sm(chol_inv_kernel, gprf::smem_bytes(m, 0));
 }

@@ -17,8 +17,8 @@
 // ~3.7k: 16 dependent pivots, each a shuffle, a rsqrt and an FMA), the
 // solves 11k, the store 9k; ~0.070 ms for the 180 matrices.
 //
-// Design (the factor phase of blocked.cuh, which K1 runs too, here with the
-// right-hand sides Z): blocks of kNb = 16, m padded with identity to
+// Design (the factor phase of blocked.cuh, which K1, K4 and K5 run too, here
+// with the right-hand sides Z): blocks of kNb = 16, m padded with identity to
 // mp = 16 ceil(m/16) and dy with zero columns to dyp = 4 ceil(dy/4), cropped
 // on the store.
 // Left-looking over the block columns k, two barriers each:
@@ -43,108 +43,45 @@
 
 namespace {
 
-using gprf::copy_row;
-using gprf::cp_async_commit;
-using gprf::cp_async_wait_all;
-using gprf::factor_diagonal;
+using gprf::kBlockThreads;
+using gprf::kBlockWarps;
 using gprf::kNb;
 using gprf::round_up;
-using gprf::solve_tile;
-using gprf::tile_count;
-using gprf::update_tile;
 
-constexpr float kLog2Pi = 1.8378770664093453f;
-constexpr int kMvnThreads = gprf::kBlockThreads;
-constexpr int kMvnWarps = gprf::kBlockWarps;
-
-size_t smem_bytes(int m, int dy) {
-  const size_t mp = round_up(m, kNb), dyp = round_up(dy, 4);
-  return (mp * mp + mp * dyp) * sizeof(float);
-}
-
-// The lower triangle of K (identity past m) into A and Y (zero past m, dy)
-// into Z; a warp a row.  A's upper triangle is not written (nor read
-// before it is).
-__device__ __forceinline__ void load_inputs(float* A, float* Z, const float* K, const float* Y,
-                                            int m, int mp, int dy, int dyp) {
-  const int warp = threadIdx.x >> 5;
-  for (int r = warp; r < mp; r += kMvnWarps) {
-    gprf::load_lower_row(A, K, r, m, mp);
-    copy_row(Z + r * dyp, Y + static_cast<size_t>(min(r, m - 1)) * dy, r < m ? dy : 0, dyp);
-  }
-  cp_async_commit();
-  cp_async_wait_all();
-}
-
-__global__ void __launch_bounds__(kMvnThreads, 2)
+__global__ void __launch_bounds__(kBlockThreads, 2)
 mvn_kernel(const float* __restrict__ Kin, const float* __restrict__ Yin,
            const float* __restrict__ n_active, float* __restrict__ ll,
            float* __restrict__ Lout, int m, int dy) {
   extern __shared__ float4 smem4[];
   __shared__ __align__(16) float DT[kNb * kNb];
-  __shared__ float partial[kMvnWarps];
+  __shared__ float partial[kBlockWarps];
   const int mp = round_up(m, kNb), dyp = round_up(dy, 4), nblk = mp / kNb;
   float* A = reinterpret_cast<float*>(smem4);
   float* Z = A + mp * mp;
   const size_t off = static_cast<size_t>(blockIdx.x) * m * m;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  load_inputs(A, Z, Kin + off, Yin + static_cast<size_t>(blockIdx.x) * m * dy, m, mp, dy, dyp);
+  gprf::load_inputs(A, Z, Kin + off, Yin + static_cast<size_t>(blockIdx.x) * m * dy, m, mp, dy,
+                    dyp);
   __syncthreads();
 
-  float logdet = 0.f;  // warp 0's
-  for (int k = 0; k < nblk; ++k) {
-    const int tiles = tile_count(k, nblk, dyp);
-    if (warp == 0)
-      logdet = factor_diagonal(A, DT, mp, kNb * k, logdet);
-    else if (k > 0)
-      for (int t = warp - 1; t < tiles; t += kMvnWarps - 1) update_tile(A, Z, mp, dyp, k, nblk, t);
-    __syncthreads();
-    for (int t = warp; t < tiles; t += kMvnWarps) solve_tile(A, Z, DT, mp, dyp, k, nblk, t);
-    __syncthreads();
-  }
+  const float logdet = gprf::factor_blocks(A, Z, DT, mp, dyp, nblk);  // warp 0's
 
-  float quad = 0.f;
-  for (int idx = threadIdx.x; idx < mp * dyp; idx += kMvnThreads) quad += Z[idx] * Z[idx];
-  for (int s = 16; s > 0; s >>= 1) quad += __shfl_down_sync(0xffffffffu, quad, s);
-  if (lane == 0) partial[warp] = quad;
+  gprf::quad_form_partial(Z, mp * dyp, partial);
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float q = 0.f;
-    for (int w = 0; w < kMvnWarps; ++w) q += partial[w];
-    ll[blockIdx.x] = -0.5f * q - 0.5f * dy * logdet - 0.5f * dy * n_active[blockIdx.x] * kLog2Pi;
-  }
+  if (threadIdx.x == 0)
+    ll[blockIdx.x] = gprf::mvn_log_density(partial, dy, logdet, n_active[blockIdx.x]);
   gprf::store_lower_cropped(Lout, off, A, m, mp);
-}
-
-cudaError_t configure(size_t smem) {
-  cudaError_t e = cudaFuncSetAttribute(
-      mvn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  // the whole of the SM's unified memory as shared memory, so that two CTAs fit
-  return cudaFuncSetAttribute(mvn_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace
 
 extern "C" int gprf_mvn_ll(const float* K, const float* Y, const float* n_active, float* ll,
                            float* L, int batch, int m, int dy, void* stream) {
-  const size_t smem = smem_bytes(m, dy);
-  cudaError_t e = configure(smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (batch == 0) return 0;
-  mvn_kernel<<<batch, kMvnThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      K, Y, n_active, ll, L, m, dy);
-  return static_cast<int>(cudaGetLastError());
+  return gprf::launch(mvn_kernel, batch, gprf::smem_bytes(m, dy), stream, K, Y, n_active, ll, L,
+                      m, dy);
 }
 
 // CTAs of K2 resident on one SM at (m, dy) (negative: a CUDA error code)
 extern "C" int gprf_mvn_ctas_per_sm(int m, int dy) {
-  const size_t smem = smem_bytes(m, dy);
-  cudaError_t e = configure(smem);
-  int n = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, mvn_kernel, kMvnThreads, smem);
-  return e == cudaSuccess ? n : -static_cast<int>(e);
+  return gprf::ctas_per_sm(mvn_kernel, gprf::smem_bytes(m, dy));
 }

@@ -5,99 +5,88 @@
 //
 // Replaces the TPU kernel _mvn_inv_kernel (gprf_tpu/ops/pallas_mvn.py), the
 // pair kernel of the MVN+inverse route: with W and Z saved, the backward
-// pass is products only and launches no triangular inverse (K3).
+// pass is products only and launches no triangular inverse (K3).  Only the
+// lower triangle of K_b is read; W has exact zeros above the diagonal, and
+// padded rows (identity in K_b, zero in Y_b) stay identity rows of W and
+// zero rows of Z.  The pivots are the TPU kernel's: column j is scaled by
+// d_j = rsqrt(max(a_jj, 1e-30)), logdet adds log(max(a_jj, 1e-30)), and the
+// inverse divides by the guarded 1 / (|L_jj| > 1e-30 ? L_jj : 1e-30).
 //
-// Bound: m sequential steps of shared-memory row updates between block
-// barriers (E = 180 pair blocks at the flagship: two waves over 132 SMs),
-// O(m^2 + m dy + k m) a step.  Design: one right-looking k-loop carries the
-// factorization, the dy right-hand sides, the log-determinant and the
-// quadratic form, and the substitution for W, folded in as a second rank-1
-// update of a running right-hand side, rides the same loop, so each step
-// costs two barriers.  K, W and Y share the CTA's shared
-// memory ((2 m^2 + m dy + m) floats: m <= 158 at dy = 50); L never leaves
-// the SM, only ll, W (zero above the diagonal) and Z are written.
-#include "common.cuh"
+// Bound: the work is small (m^3/3 + m^2 dy/2 FMAs, 1.3 M a matrix at
+// m = 136, dy = 50) and so are the bytes (half of K and Y read, W and Z
+// written); what bounds a CTA is the length of its dependency chain.  The
+// design this replaces ran m sequential steps at two barriers each, the
+// substitution for W folded into the factor's loop as a rank-1 update of a
+// second m x m buffer.
+//
+// Design: the two phases of blocked.cuh on K2's buffers, A of mp^2 floats
+// and Z of mp x dyp (mp = 16 ceil(m/16), dyp = 4 ceil(dy/4)), cropped on the
+// stores.
+//  1. The factor with the right-hand sides, K2's loop: two barriers a
+//     16-wide block column.  L is then in A's lower triangle, the transposes
+//     of its off-diagonal blocks above the diagonal, and Z = L^-1 Y is final.
+//  2. The quadratic form is summed and Z is stored; the inverse never
+//     touches Z.
+//  3. The inverse in place, K1's: the diagonal blocks at once from L_kk by
+//     the guarded reciprocal (not from the factor's D_k: at a clamped pivot
+//     1/d_j is not L_jj), then block row i = 1 .. nblk-1, one barrier each,
+//     W_ij = -W_ii sum_k L_ik W_kj over L_ij, with L_ik read from the
+//     transposes.  L is never stored, so no barrier separates the phases but
+//     the factor's last.
+//  4. ll and W are stored.
+// A, Z, the 1 KB block D_k^T and 8 partial sums are all the shared memory, as
+// in K2: 112,896 B dynamic at m = 136, dy = 50, so two CTAs share an SM and
+// the flagship's 180 matrices run in one wave; m <= 208 at dy = 50.
+#include "blocked.cuh"
 
 namespace {
 
-constexpr float kLog2Pi = 1.8378770664093453f;
-constexpr int kChunks = 6;  // columns of K and W per lane: m <= 192 (shared memory caps it at 169)
+using gprf::kBlockThreads;
+using gprf::kBlockWarps;
+using gprf::kNb;
+using gprf::round_up;
 
-// kYChunks: columns of Y per lane, dy <= 32 kYChunks
-template <int kYChunks>
-__global__ void __launch_bounds__(gprf::kThreads)
-mvn_inv_kernel(const float* __restrict__ K, const float* __restrict__ Y,
+__global__ void __launch_bounds__(kBlockThreads, 2)
+mvn_inv_kernel(const float* __restrict__ Kin, const float* __restrict__ Yin,
                const float* __restrict__ n_active, float* __restrict__ ll,
-               float* __restrict__ W, float* __restrict__ Zout, int m, int dy) {
-  extern __shared__ float smem[];
-  __shared__ float partial[gprf::kWarps];
-  float* A = smem;          // K; its trailing lower triangle is updated in place
-  float* R = A + m * m;     // I, overwritten row by row by W
-  float* Z = R + m * m;     // Y, overwritten by L^-1 Y
-  float* col = Z + m * dy;  // scaled column k of L
-  const size_t off = static_cast<size_t>(blockIdx.x) * m * m;
+               float* __restrict__ Wout, float* __restrict__ Zout, int m, int dy) {
+  extern __shared__ float4 smem4[];
+  __shared__ __align__(16) float DT[kNb * kNb];
+  __shared__ float partial[kBlockWarps];
+  const int mp = round_up(m, kNb), dyp = round_up(dy, 4), nblk = mp / kNb;
+  float* A = reinterpret_cast<float*>(smem4);
+  float* Z = A + mp * mp;
   const size_t yoff = static_cast<size_t>(blockIdx.x) * m * dy;
-  gprf::load(A, K + off, m * m);
-  gprf::load(Z, Y + yoff, m * dy);
-  gprf::set_identity(R, m);
+
+  gprf::load_inputs(A, Z, Kin + static_cast<size_t>(blockIdx.x) * m * m, Yin + yoff, m, mp, dy,
+                    dyp);
   __syncthreads();
 
-  float logdet = 0.f;  // the same value in every thread
-  for (int k = 0; k < m; ++k) {
-    const float akk = A[k * m + k];
-    const float d = rsqrtf(fmaxf(akk, gprf::kTiny));
-    const float lkk = akk * d;
-    const float winv = 1.f / (fabsf(lkk) > gprf::kTiny ? lkk : gprf::kTiny);
-    logdet += logf(fmaxf(akk, gprf::kTiny));
-    for (int i = k + threadIdx.x; i < m; i += blockDim.x) col[i] = A[i * m + k] * d;
-    for (int c = threadIdx.x; c < dy; c += blockDim.x) Z[k * dy + c] *= d;
-    for (int j = threadIdx.x; j <= k; j += blockDim.x) R[k * m + j] *= winv;
-    __syncthreads();
+  const float logdet = gprf::factor_blocks(A, Z, DT, mp, dyp, nblk);  // warp 0's
 
-    // column k of L lives in col only: nothing reads column k of A again
-    auto lik = [&](int i) { return col[i]; };
-    // trailing update of the lower triangle: rows > k, columns k < j <= i
-    float v[kChunks];
-    gprf::lane_slice(v, col, m);
-    gprf::rank1_rows(A, m, k + 1, m, k + 1, [](int i) { return i + 1; }, lik, v);
-    // forward substitution of the right-hand sides: Z[i, :] -= L[i, k] z_k
-    float z[kYChunks];
-    gprf::lane_slice(z, Z + k * dy, dy);
-    gprf::rank1_rows(Z, dy, k + 1, m, 0, [dy](int) { return dy; }, lik, z);
-    // substitution for W: rows > k of the running right-hand side lose L[i, k] W[k, :]
-    gprf::lane_slice(v, R + k * m, k + 1);
-    gprf::rank1_rows(R, m, k + 1, m, 0, [k](int) { return k + 1; }, lik, v);
-    __syncthreads();
-  }
+  gprf::quad_form_partial(Z, mp * dyp, partial);
+  gprf::store_rows_cropped(Zout, yoff, Z, m, dy, dyp);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float quad = 0.f;
-  for (int idx = threadIdx.x; idx < m * dy; idx += blockDim.x) {
-    const float zi = Z[idx];
-    quad += zi * zi;
-    Zout[yoff + idx] = zi;
+  gprf::invert_diagonal_blocks(A, mp, nblk);
+  for (int i = 1; i < nblk; ++i) {
+    __syncthreads();  // W_ii and block rows < i of W are final
+    gprf::inverse_block_row(A, mp, i);
   }
-  for (int s = 16; s > 0; s >>= 1) quad += __shfl_down_sync(0xffffffffu, quad, s);
-  if (lane == 0) partial[warp] = quad;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float q = 0.f;
-    for (int w = 0; w < gprf::kWarps; ++w) q += partial[w];
-    ll[blockIdx.x] = -0.5f * q - 0.5f * dy * logdet - 0.5f * dy * n_active[blockIdx.x] * kLog2Pi;
-  }
-  gprf::store_lower(W + off, R, m);
+  __syncthreads();  // W is whole, and the partial sums are published
+  if (threadIdx.x == 0)
+    ll[blockIdx.x] = gprf::mvn_log_density(partial, dy, logdet, n_active[blockIdx.x]);
+  gprf::store_lower_cropped(Wout, static_cast<size_t>(blockIdx.x) * m * m, A, m, mp);
 }
 
 }  // namespace
 
 extern "C" int gprf_mvn_ll_inv(const float* K, const float* Y, const float* n_active, float* ll,
                                float* W, float* Z, int batch, int m, int dy, void* stream) {
-  if (m > 32 * kChunks) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      (2 * static_cast<size_t>(m) * m + static_cast<size_t>(m) * dy + m) * sizeof(float);
-  if (dy <= 32) return gprf::launch(mvn_inv_kernel<1>, batch, smem, stream, K, Y, n_active, ll, W, Z, m, dy);
-  if (dy <= 64) return gprf::launch(mvn_inv_kernel<2>, batch, smem, stream, K, Y, n_active, ll, W, Z, m, dy);
-  if (dy <= 128) return gprf::launch(mvn_inv_kernel<4>, batch, smem, stream, K, Y, n_active, ll, W, Z, m, dy);
-  if (dy <= 256) return gprf::launch(mvn_inv_kernel<8>, batch, smem, stream, K, Y, n_active, ll, W, Z, m, dy);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return gprf::launch(mvn_inv_kernel, batch, gprf::smem_bytes(m, dy), stream, K, Y, n_active, ll,
+                      W, Z, m, dy);
+}
+
+// CTAs of K4 resident on one SM at (m, dy) (negative: a CUDA error code)
+extern "C" int gprf_mvn_inv_ctas_per_sm(int m, int dy) {
+  return gprf::ctas_per_sm(mvn_inv_kernel, gprf::smem_bytes(m, dy));
 }

@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes of the exported C functions (pointers, sizes, stream; the
-# last three are occupancy queries)
+# last four are occupancy queries)
 SIGNATURES = {
     "gprf_chol_inv": (_P, _P, _P, _I, _I, _P),
     "gprf_mvn_ll": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -44,6 +44,7 @@ SIGNATURES = {
     "gprf_chol_inv_ctas_per_sm": (_I,),
     "gprf_tri_inv_ctas_per_sm": (_I,),
     "gprf_mvn_ctas_per_sm": (_I, _I),
+    "gprf_mvn_inv_ctas_per_sm": (_I, _I),
 }
 
 

@@ -5,7 +5,7 @@ PyTorch twins and analytic backward passes.
     K2  mvn_ll(Kp, Ym, n_act)      -> (ll [B], L)                csrc/mvn.cu
     K3  tri_inv(L)                 -> W = L^-1                   csrc/tri_inv.cu
     K4  mvn_ll_inv(Kp, Ym, n_act)  -> (ll [B], W, Z = L^-1 Ym)   csrc/mvn_inv.cu
-    K5  cholesky(K)                -> L                          csrc/chol.cu
+    K5  cholesky(K)                -> L                          csrc/chol_inv.cu
 
 K1-K3 carry the default route of the objective; K4 the MVN+inverse route
 and K5 the unary-doubling route (:mod:`gprf_torch.model.objective`).
@@ -39,15 +39,12 @@ LOG_2PI = math.log(2.0 * math.pi)
 # Largest dynamic shared memory one CTA may use on the H100 (227 KB).
 SMEM_BYTES = 232_448
 _F32 = 4
-# K5 holds K and one column: (m^2 + m) floats.
-MAX_M_CHOL = 240
-# K4's static shared memory (per-warp partial sums of the quadratic form).
-_MVN_STATIC_BYTES = 16 * _F32
-# K1, K2 and K3 work in blocks of NB over m padded to a multiple of NB.
+# The kernels work in blocks of NB over m padded to a multiple of NB.
 NB = 16
-# The factor's static shared memory, in K1 and K2: one NB x NB block (D_k^T).
+# The factor's static shared memory, in K1, K2, K4 and K5: one NB x NB block
+# (D_k^T).
 _FACTOR_STATIC_BYTES = NB * NB * _F32
-# K2's static shared memory: the factor's and 8 per-warp partial sums.
+# K2's and K4's static shared memory: the factor's and 8 per-warp partial sums.
 _MVN_BLOCKED_STATIC_BYTES = _FACTOR_STATIC_BYTES + 8 * _F32
 # K2 and K4 take dy <= 256.
 MAX_DY_MVN = 256
@@ -60,26 +57,29 @@ def _round_up(n: int, to: int) -> int:
 def chol_inv_smem_bytes(m: int) -> int:
     """K1's shared memory: K at the padded width mp (mp^2 floats), which
     becomes L and then, in place, W = L^-1, and the factor's static block;
-    83,968 B at m = 136."""
+    83,968 B at m = 136.  K5's too: it is K1 up to the store of L."""
     mp = _round_up(m, NB)
     return mp * mp * _F32 + _FACTOR_STATIC_BYTES
 
 
 # Largest m whose K1 working set fits the CTA's shared memory: 240.
 MAX_M_CHOL_INV = max(m for m in range(1, 512) if chol_inv_smem_bytes(m) <= SMEM_BYTES)
+# K5 runs K1's factor on the same buffer, so it has K1's cap.
+MAX_M_CHOL = MAX_M_CHOL_INV
 
 
 def mvn_smem_bytes(m: int, dy: int) -> int:
     """K2's shared memory: K (and then L) at the padded width mp, mp^2
     floats, and Y (and then L^-1 Y) at mp x dyp, dy padded to a multiple
-    of 4; 112,896 B of dynamic shared memory at m = 136, dy = 50."""
+    of 4; 112,896 B of dynamic shared memory at m = 136, dy = 50.  K4's
+    too: W = L^-1 overwrites L in place."""
     mp, dyp = _round_up(m, NB), _round_up(dy, 4)
     return (mp * mp + mp * dyp) * _F32 + _MVN_BLOCKED_STATIC_BYTES
 
 
 def mvn_max_m(dy: int) -> int:
-    """Largest m whose K2 working set fits the CTA's shared memory; 208 at
-    the flagship dy = 50."""
+    """Largest m whose K2 (and K4) working set fits the CTA's shared
+    memory; 208 at the flagship dy = 50."""
     m = int(math.isqrt(SMEM_BYTES // _F32))
     while mvn_smem_bytes(m, dy) > SMEM_BYTES:
         m -= 1
@@ -97,17 +97,13 @@ def tri_inv_smem_bytes(m: int) -> int:
 MAX_M_TRI_INV = max(m for m in range(1, 512) if tri_inv_smem_bytes(m) <= SMEM_BYTES)
 
 
-def mvn_inv_smem_bytes(m: int, dy: int) -> int:
-    """K4's shared memory: K, the running inverse, Y and one column."""
-    return (2 * m * m + m * dy + m) * _F32 + _MVN_STATIC_BYTES
-
-
 def mvn_inv_supported(m: int, dy: int) -> bool:
-    """Whether K4 takes (m, dy): its working set fits the CTA's shared
-    memory (m <= 158 at the flagship dy = 50) and dy <= 256.  The MVN
-    leaves of :func:`gprf_torch.ops.split_mvn.mvn_ll_split` gate on it on
-    every device, so the CPU and the card take the same route."""
-    return dy <= MAX_DY_MVN and mvn_inv_smem_bytes(m, dy) <= SMEM_BYTES
+    """Whether K4 takes (m, dy): K2's working set (:func:`mvn_smem_bytes`)
+    fits the CTA's shared memory (m <= 208 at the flagship dy = 50) and
+    dy <= 256.  The MVN leaves of
+    :func:`gprf_torch.ops.split_mvn.mvn_ll_split` gate on it on every
+    device, so the CPU and the card take the same route."""
+    return dy <= MAX_DY_MVN and m <= mvn_max_m(dy)
 
 
 # Kernel launches per wrapper since the last reset.  Only a launch of the
@@ -288,11 +284,15 @@ def mvn_ll_inv(Kp, Ym, n_active):
     zero-padded Ym [B, m, dy] and active counts [B], where (m, dy) pass
     :func:`mvn_inv_supported`.
 
-    Replaces ``_mvn_inv_kernel`` (gprf_tpu/ops/pallas_mvn.py).  Bound by m
-    sequential steps of shared-memory row updates; the substitution for W
-    is folded into the MVN's k-loop (right-looking on both), so one pass
-    over K gives ll and both residuals of the backward pass, and L never
-    leaves the SM (csrc/mvn_inv.cu)."""
+    Replaces ``_mvn_inv_kernel`` (gprf_tpu/ops/pallas_mvn.py).  Bound by
+    the length of its dependency chain, not by FLOPs or bytes, so it runs
+    K2's blocked factor with the right-hand sides (ceil(m/16) left-looking
+    block columns) and then K1's blocked inverse in place (the diagonal
+    blocks at once, then ceil(m/16) - 1 block rows) where it ran m rank-1
+    steps over two m x m buffers.  One pass over K gives ll and both
+    residuals of the backward pass; L never leaves the SM, and W overwrites
+    it in K2's working set, so two CTAs share an SM at m = 136, dy = 50
+    (csrc/mvn_inv.cu, csrc/blocked.cuh, :func:`mvn_smem_bytes`)."""
     if _on_cpu(Kp, Ym, n_active):
         return mvn_ll_inv_plain(Kp, Ym, n_active)
     B, m = _square_batch("mvn_ll_inv", Kp)
@@ -302,7 +302,7 @@ def mvn_ll_inv(Kp, Ym, n_active):
     _check("mvn_ll_inv", n_active, (B,))
     if not mvn_inv_supported(m, dy):
         raise ValueError(f"mvn_ll_inv: (m={m}, dy={dy}) exceeds the kernel's shared memory "
-                         "or dy cap; gate on mvn_inv_supported and use mvn_ll")
+                         "or dy cap; gate on mvn_inv_supported and use split_mvn.mvn_ll_split")
     ll = torch.empty((B,), dtype=Kp.dtype, device=Kp.device)
     W = torch.empty_like(Kp)
     Z = torch.empty_like(Ym)
@@ -317,9 +317,13 @@ def mvn_ll_inv(Kp, Ym, n_active):
 def cholesky(K):
     """K5: lower Cholesky factor L of SPD [B, m, m], m <= 240.
 
-    Replaces ``_chol_kernel`` (gprf_tpu/ops/pallas_mvn.py).  Bound by m
-    sequential steps of shared-memory row updates, right-looking, one CTA
-    per matrix holding K and one column (csrc/chol.cu).  Above its cap it raises, where the TPU
+    Replaces ``_chol_kernel`` (gprf_tpu/ops/pallas_mvn.py).  Bound by the
+    length of its dependency chain, not by FLOPs or bytes, so it runs K1's
+    blocked factor (ceil(m/16) left-looking block columns, the diagonal
+    block factored in registers) where it ran m rank-1 steps, and stores
+    L: K1's kernel up to that store, one CTA per matrix on one buffer, two
+    CTAs an SM at m = 136 (csrc/chol_inv.cu, csrc/blocked.cuh,
+    :func:`chol_inv_smem_bytes`).  Above its cap it raises, where the TPU
     pipeline falls back to XLA's Cholesky without a word; callers go
     through :func:`gprf_torch.ops.split_mvn.cholesky_split`, which keeps
     every leaf on the kernels."""

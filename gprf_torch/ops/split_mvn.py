@@ -10,7 +10,7 @@ batched matrix products:
 Each leaf is one kernel launch.  The leaf caps are the kernels' own
 shared-memory caps on the H100 (:data:`LEAF_CHOL` = 240 for K1,
 :data:`LEAF_TRI` = 224 for K3, :data:`LEAF_CHOLESKY` = 240 for K5,
-:func:`gprf_torch.ops.mvn.mvn_max_m` = 208 at dy = 50 for K2), so the
+:func:`gprf_torch.ops.mvn.mvn_max_m` = 208 at dy = 50 for K2 and K4), so the
 flagship width m = 136 goes straight to the kernels and only wider blocks
 split.  The ``leaf`` arguments force a split, for tests and comparisons.
 

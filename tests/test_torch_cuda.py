@@ -48,6 +48,21 @@ def _close(a, b, rtol=RTOL):
     assert np.abs(a - b).max() <= rtol * scale, np.abs(a - b).max() / scale
 
 
+# K1 and K5 run one factor, and K2 and K4 one factor with right-hand sides:
+# name -> (kernel, twin), each returning a tuple (K1: L, W; K5: L; K2: ll, L;
+# K4: ll, W, Z)
+FACTOR_KERNELS = {
+    "chol_inv": (mvn.chol_inv, mvn.chol_inv_plain),
+    "cholesky": (lambda K: (mvn.cholesky(K),), lambda K: (mvn.cholesky_plain(K),)),
+}
+MVN_KERNELS = {
+    "mvn_ll": (mvn.mvn_ll, mvn.mvn_ll_plain),
+    "mvn_ll_inv": (mvn.mvn_ll_inv, mvn.mvn_ll_inv_plain),
+}
+factor_kernels = pytest.mark.parametrize("name", list(FACTOR_KERNELS))
+mvn_kernels = pytest.mark.parametrize("name", list(MVN_KERNELS))
+
+
 # one block, ragged and full last blocks of K1's 16-wide blocking, the
 # flagship width, the first capacity growth, the former cap, the seismic
 # width and the cap
@@ -67,31 +82,34 @@ def test_chol_inv_kernel(dev, B, m):
     assert torch.all(torch.triu(L, 1) == 0) and torch.all(torch.triu(W, 1) == 0)
 
 
-def test_chol_inv_kernel_reads_only_the_lower_triangle(dev):
+@factor_kernels
+def test_chol_inv_kernel_reads_only_the_lower_triangle(dev, name):
     """NaN above K's diagonal changes no bit of L or W: the factor reads
     the lower triangle only, and the in-place inverse never reads the strict
     upper parts of the diagonal blocks, which the factor leaves unwritten."""
+    kernel, plain = FACTOR_KERNELS[name]
     rng = np.random.default_rng(11)
     K = torch.as_tensor(_spd(rng, 3, 45), device=dev).float()
     dirty = K + torch.triu(torch.full_like(K, float("nan")), 1)
-    L, W = mvn.chol_inv(K.contiguous())
-    Ld, Wd = mvn.chol_inv(dirty.contiguous())
+    clean_out = kernel(K.contiguous())
+    dirty_out = kernel(dirty.contiguous())
     torch.cuda.synchronize()
-    assert torch.isfinite(Ld).all() and torch.isfinite(Wd).all()
-    assert torch.equal(Ld, L) and torch.equal(Wd, W)
-    L_ref, W_ref = mvn.chol_inv_plain(torch.tril(K.double()) + torch.tril(K.double(), -1).mT)
-    _close(Ld, L_ref)
-    _close(Wd, W_ref)
+    refs = plain(torch.tril(K.double()) + torch.tril(K.double(), -1).mT)
+    for got, same, ref in zip(dirty_out, clean_out, refs):
+        assert torch.isfinite(got).all() and torch.equal(got, same)
+        _close(got, ref)
 
 
-def test_chol_inv_kernel_keeps_identity_padding_exact(dev):
+@factor_kernels
+def test_chol_inv_kernel_keeps_identity_padding_exact(dev, name):
+    kernel, plain = FACTOR_KERNELS[name]
     B, m = 4, 136
     n_active = np.array([136, 100, 97, 40])
     rng = np.random.default_rng(5)
     K = torch.as_tensor(_spd(rng, B, m, n_active), device=dev)
-    L, W = mvn.chol_inv(K.float())
+    out = kernel(K.float())
     torch.cuda.synchronize()
-    for got, ref in zip((L, W), mvn.chol_inv_plain(K)):
+    for got, ref in zip(out, plain(K)):
         _close(got, ref)
         for b, n in enumerate(n_active):
             assert torch.all(got[b, n:, n:] == torch.eye(m - n, device=dev))
@@ -114,20 +132,30 @@ def _chol_inv_steps(K):
         colu = torch.where(idx > k, col, 0.0)
         A = A - torch.outer(colu, colu)
     L = torch.tril(A.mT)
+    return L, _tri_inv_steps(L)
+
+
+def _tri_inv_steps(L):
+    """W by the substitution loop that ``_chol_inv_kernel`` and
+    ``_mvn_inv_kernel`` share: row k is divided by L_kk where
+    |L_kk| > 1e-30, else by 1e-30."""
+    m = L.shape[0]
     W = torch.zeros_like(L)
-    eye = torch.eye(m, dtype=K.dtype)
+    eye = torch.eye(m, dtype=L.dtype)
     for k in range(m):
         lkk = L[k, k]
         W[k] = (eye[k] - L[k] @ W) / (lkk if abs(float(lkk)) > 1e-30 else 1e-30)
-    return L, W
+    return W
 
 
-def test_chol_inv_kernel_clamps_pivots_like_the_tpu_kernel(dev):
+@factor_kernels
+def test_chol_inv_kernel_clamps_pivots_like_the_tpu_kernel(dev, name):
     """A pivot of 1e-31 and a negative pivot, each with nonzero entries below
     it: the factor scales their columns by rsqrt(max(a_kk, 1e-30)), so L_kk
     is 1e-31 * 1e15 = 1e-16 and -0.5e15, and W divides by those L_kk (not
     by 1/d, which the factor's panel solve uses), as the TPU kernel's steps
-    do.  W reaches 1e16, so it is compared entry by entry, relative."""
+    do (``_chol_kernel``'s step is ``_chol_inv_kernel``'s first loop).  W
+    reaches 1e16, so it is compared entry by entry, relative."""
     rng = np.random.default_rng(10)
     B, m = 2, 37
     K = _spd(rng, B, m)
@@ -136,46 +164,52 @@ def test_chol_inv_kernel_clamps_pivots_like_the_tpu_kernel(dev):
         K[:, p, p] = v
         K[:, p + 1:, p] = K[:, p, p + 1:] = 1e-16 * rng.normal(size=(B, m - p - 1))
     K = K.astype(np.float32).astype(np.float64)  # the kernel's inputs, exactly
-    L, W = mvn.chol_inv(torch.as_tensor(K, dtype=torch.float32, device=dev))
+    out = FACTOR_KERNELS[name][0](torch.as_tensor(K, dtype=torch.float32, device=dev))
     torch.cuda.synchronize()
     for b in range(B):
         L_ref, W_ref = _chol_inv_steps(torch.as_tensor(K[b]))
         assert float(L_ref[20, 20]) < -1e14 and 0.0 < float(L_ref[5, 5]) < 1e-15
         assert float(W_ref[5, 5]) > 1e15 and -1e-14 < float(W_ref[20, 20]) < 0.0
-        for got, ref in ((L[b], L_ref), (W[b], W_ref)):
-            err = (got.double().cpu() - ref).abs() / (ref.abs() + 1.0)
+        for got, ref in zip(out, (L_ref, W_ref)):
+            err = (got[b].double().cpu() - ref).abs() / (ref.abs() + 1.0)
             assert float(err.max()) <= 1e-4
 
 
+@factor_kernels
 @pytest.mark.parametrize("offset", [1, 2, 3])
-def test_chol_inv_kernel_takes_views_at_any_offset(dev, offset):
-    """K1 copies K by 4-byte cp.async, as K2 does, so a contiguous view that
-    starts off a 16-byte boundary is taken as it is."""
+def test_chol_inv_kernel_takes_views_at_any_offset(dev, offset, name):
+    """K1 and K5 copy K by 4-byte cp.async, as K2 does, so a contiguous view
+    that starts off a 16-byte boundary is taken as it is."""
+    kernel, plain = FACTOR_KERNELS[name]
     rng = np.random.default_rng(13)
     K = torch.as_tensor(_spd(rng, 3, 36), device=dev)
     flat = torch.zeros(K.numel() + offset, device=dev)
     flat[offset:] = K.float().flatten()
-    L, W = mvn.chol_inv(flat[offset:].view(K.shape))
+    out = kernel(flat[offset:].view(K.shape))
     torch.cuda.synchronize()
-    L_ref, W_ref = mvn.chol_inv_plain(K)
-    _close(L, L_ref)
-    _close(W, W_ref)
+    for got, ref in zip(out, plain(K)):
+        _close(got, ref)
 
 
-def test_chol_inv_kernel_refuses_past_its_cap(dev):
-    cap = mvn.MAX_M_CHOL_INV
+@factor_kernels
+def test_chol_inv_kernel_refuses_past_its_cap(dev, name):
+    kernel = FACTOR_KERNELS[name][0]
+    cap = {"chol_inv": mvn.MAX_M_CHOL_INV, "cholesky": mvn.MAX_M_CHOL}[name]
     assert cap >= 192
-    L, W = mvn.chol_inv(torch.eye(cap, device=dev)[None])
+    out = kernel(torch.eye(cap, device=dev)[None])
     torch.cuda.synchronize()
-    assert torch.equal(L[0], torch.eye(cap, device=dev)) and torch.equal(W, L)
+    for got in out:
+        assert torch.equal(got[0], torch.eye(cap, device=dev))
     with pytest.raises(ValueError):
-        mvn.chol_inv(torch.eye(cap + 1, device=dev)[None])
+        kernel(torch.eye(cap + 1, device=dev)[None])
 
 
 def test_chol_inv_kernel_fits_two_ctas_an_sm_at_the_flagship(dev):
+    """K5 runs K1's kernel, so this is its occupancy too."""
     from gprf_torch.ops import _build
 
     lib = _build.load().lib
+    assert mvn.MAX_M_CHOL == mvn.MAX_M_CHOL_INV
     assert lib.gprf_chol_inv_ctas_per_sm(136) == 2
     assert lib.gprf_chol_inv_ctas_per_sm(mvn.MAX_M_CHOL_INV) == 1
 
@@ -274,11 +308,12 @@ def test_mvn_kernel(dev, B, m, dy):
     assert torch.all(torch.triu(L, 1) == 0)
 
 
-@pytest.mark.parametrize("k_offset,y_offset", [(1, 2), (2, 1), (4, 4)])
-def test_mvn_kernel_takes_views_at_any_offset(dev, k_offset, y_offset):
-    """K2 copies rows 16, 8 or 4 bytes at a time, as the inputs' strides and
-    start addresses allow; contiguous views that start off a 16-byte
-    boundary take the narrower copies."""
+@mvn_kernels
+@pytest.mark.parametrize("k_offset,y_offset", [(1, 2), (2, 1), (4, 4), (3, 3)])
+def test_mvn_kernel_takes_views_at_any_offset(dev, k_offset, y_offset, name):
+    """K2 and K4 copy K and Y by 4-byte cp.async, so contiguous views that
+    start off a 16-byte boundary are taken as they are."""
+    kernel, plain = MVN_KERNELS[name]
     B, m, dy = 3, 36, 8
     K, Y, na = _mvn_inputs(dev, B, m, dy, seed=12)
 
@@ -287,40 +322,50 @@ def test_mvn_kernel_takes_views_at_any_offset(dev, k_offset, y_offset):
         flat[offset:] = t.float().flatten()
         return flat[offset:].view(t.shape)
 
-    ll, L = mvn.mvn_ll(view_at(K, k_offset), view_at(Y, y_offset), na.float())
+    out = kernel(view_at(K, k_offset), view_at(Y, y_offset), na.float())
     torch.cuda.synchronize()
-    ll_ref, L_ref = mvn.mvn_ll_plain(K, Y, na)
-    _close(ll, ll_ref)
-    _close(L, L_ref)
+    for got, ref in zip(out, plain(K, Y, na)):
+        _close(got, ref)
 
 
-def test_mvn_kernel_keeps_identity_padding_exact(dev):
+@mvn_kernels
+def test_mvn_kernel_keeps_identity_padding_exact(dev, name):
+    """Padded rows stay identity rows of L (K2) and of W (K4), and zero rows
+    of K4's Z, bit for bit."""
+    kernel, plain = MVN_KERNELS[name]
     n_active = [136, 100, 97, 40, 1]
     K, Y, na = _mvn_inputs(dev, 5, 136, 50, n_active, seed=8)
-    ll, L = mvn.mvn_ll(K.float(), Y.float(), na.float())
+    out = kernel(K.float(), Y.float(), na.float())
     torch.cuda.synchronize()
-    ll_ref, L_ref = mvn.mvn_ll_plain(K, Y, na)
-    _close(ll, ll_ref)
-    _close(L, L_ref)
+    for got, ref in zip(out, plain(K, Y, na)):
+        _close(got, ref)
     for b, n in enumerate(n_active):
-        assert torch.all(L[b, n:, n:] == torch.eye(136 - n, device=dev))
-        assert torch.all(L[b, n:, :n] == 0)
+        assert torch.all(out[1][b, n:, n:] == torch.eye(136 - n, device=dev))
+        assert torch.all(out[1][b, n:, :n] == 0)
+        if name == "mvn_ll_inv":
+            assert torch.all(out[2][b, n:] == 0)
 
 
-def test_mvn_kernel_reads_only_the_lower_triangle(dev):
+@mvn_kernels
+def test_mvn_kernel_reads_only_the_lower_triangle(dev, name):
+    """NaN above K's diagonal changes no bit of any output: the factor reads
+    the lower triangle only, and K4's in-place inverse never reads the
+    strict upper parts of the diagonal blocks."""
+    kernel, plain = MVN_KERNELS[name]
     K, Y, na = _mvn_inputs(dev, 3, 45, 5, seed=9)
     dirty = K.float() + torch.triu(torch.full_like(K.float(), float("nan")), 1)
-    ll, L = mvn.mvn_ll(dirty.contiguous(), Y.float(), na.float())
+    clean_out = kernel(K.float().contiguous(), Y.float(), na.float())
+    dirty_out = kernel(dirty.contiguous(), Y.float(), na.float())
     torch.cuda.synchronize()
-    assert torch.isfinite(ll).all() and torch.isfinite(L).all()
-    clean = torch.tril(K) + torch.tril(K, -1).mT
-    ll_ref, L_ref = mvn.mvn_ll_plain(clean, Y, na)
-    _close(ll, ll_ref)
-    _close(L, L_ref)
+    refs = plain(torch.tril(K) + torch.tril(K, -1).mT, Y, na)
+    for got, same, ref in zip(dirty_out, clean_out, refs):
+        assert torch.isfinite(got).all() and torch.equal(got, same)
+        _close(got, ref)
 
 
 def _mvn_steps(K, Y, n):
-    """(ll, L) by the step loop of ``_mvn_kernel`` (gprf_tpu/ops/pallas_mvn.py),
+    """(ll, L, Z) by the step loop of ``_mvn_kernel``, which is the
+    factorization sweep of ``_mvn_inv_kernel`` too (gprf_tpu/ops/pallas_mvn.py),
     one [m, m] block in float64: pivot d = rsqrt(max(a_kk, 1e-30)), column k
     of L is a[:, k] d (so L_kk = a_kk d), logdet adds log(max(a_kk, 1e-30))."""
     A, Z = K.clone(), Y.clone()
@@ -338,15 +383,19 @@ def _mvn_steps(K, Y, n):
         Z[k] = Z[k] * d
         Z = Z - torch.outer(colu, Z[k])
     ll = -0.5 * torch.sum(Z * Z) - 0.5 * dy * logdet - 0.5 * dy * n * mvn.LOG_2PI
-    return ll, torch.tril(A.mT)
+    return ll, torch.tril(A.mT), Z
 
 
-def test_mvn_kernel_clamps_pivots_like_the_tpu_kernel(dev):
+@mvn_kernels
+def test_mvn_kernel_clamps_pivots_like_the_tpu_kernel(dev, name):
     """A pivot of 1e-31 and a negative pivot, each with nonzero entries below
     it: the kernel scales their columns and right-hand sides by
     rsqrt(max(a_kk, 1e-30)) and adds log(max(a_kk, 1e-30)) to logdet, as the
     TPU kernel's step does (not 1/L_kk and 2 log L_kk).  In block 1 the
-    rows of Y at the two pivots are zero, so ll shows the clamped logdet."""
+    rows of Y at the two pivots are zero, so ll shows the clamped logdet.
+    K4's W comes from L by ``_mvn_inv_kernel``'s substitution, which divides
+    by the guarded L_kk (1e-16 and -0.5e15 here), and reaches 1e16; its Z
+    reaches 1e15 in block 0, so Z is compared normwise."""
     rng = np.random.default_rng(10)
     B, m, dy = 2, 37, 5
     K = _spd(rng, B, m)
@@ -357,35 +406,50 @@ def test_mvn_kernel_clamps_pivots_like_the_tpu_kernel(dev):
     Y = rng.normal(size=(B, m, dy))
     Y[1, [5, 20]] = 0.0
     K = K.astype(np.float32).astype(np.float64)  # the kernel's inputs, exactly
-    ll, L = mvn.mvn_ll(torch.as_tensor(K, dtype=torch.float32, device=dev),
-                       torch.as_tensor(Y, dtype=torch.float32, device=dev),
-                       torch.full((B,), float(m), device=dev))
+    out = MVN_KERNELS[name][0](torch.as_tensor(K, dtype=torch.float32, device=dev),
+                               torch.as_tensor(Y, dtype=torch.float32, device=dev),
+                               torch.full((B,), float(m), device=dev))
     torch.cuda.synchronize()
     for b in range(B):
-        ll_ref, L_ref = _mvn_steps(torch.as_tensor(K[b]), torch.as_tensor(Y[b]), m)
-        assert abs(float(ll[b]) - float(ll_ref)) <= 1e-5 * abs(float(ll_ref))
-        err = (L[b].double().cpu() - L_ref).abs() / (L_ref.abs() + 1.0)
-        assert float(err.max()) <= 1e-4
+        ll_ref, L_ref, Z_ref = _mvn_steps(torch.as_tensor(K[b]), torch.as_tensor(Y[b]), m)
         assert float(L_ref[20, 20]) < -1e14 and 0.0 < float(L_ref[5, 5]) < 1e-15
+        assert abs(float(out[0][b]) - float(ll_ref)) <= 1e-5 * abs(float(ll_ref))
+        tri_ref = L_ref if name == "mvn_ll" else _tri_inv_steps(L_ref)
+        err = (out[1][b].double().cpu() - tri_ref).abs() / (tri_ref.abs() + 1.0)
+        assert float(err.max()) <= 1e-4
+        if name == "mvn_ll_inv":
+            assert float(tri_ref[5, 5]) > 1e15 and -1e-14 < float(tri_ref[20, 20]) < 0.0
+            z_err = (out[2][b].double().cpu() - Z_ref).abs().max()
+            assert float(z_err) <= 1e-4 * float(Z_ref.abs().max())
 
 
-def test_mvn_kernel_refuses_past_its_cap(dev):
+@mvn_kernels
+def test_mvn_kernel_refuses_past_its_cap(dev, name):
+    kernel = MVN_KERNELS[name][0]
     cap = mvn.mvn_max_m(50)
     assert cap >= 200
+    out = kernel(torch.eye(cap, device=dev)[None], torch.zeros(1, cap, 50, device=dev),
+                 torch.full((1,), float(cap), device=dev))
+    torch.cuda.synchronize()
+    assert torch.equal(out[1][0], torch.eye(cap, device=dev))
     with pytest.raises(ValueError):
-        mvn.mvn_ll(torch.eye(cap + 1, device=dev)[None], torch.zeros(1, cap + 1, 50, device=dev),
-                   torch.ones(1, device=dev))
+        kernel(torch.eye(cap + 1, device=dev)[None], torch.zeros(1, cap + 1, 50, device=dev),
+               torch.ones(1, device=dev))
 
 
-def test_mvn_kernel_fits_two_ctas_an_sm_at_the_flagship(dev):
+@pytest.mark.parametrize("query", ["gprf_mvn_ctas_per_sm", "gprf_mvn_inv_ctas_per_sm"])
+def test_mvn_kernel_fits_two_ctas_an_sm_at_the_flagship(dev, query):
     from gprf_torch.ops import _build
 
-    lib = _build.load().lib
-    assert lib.gprf_mvn_ctas_per_sm(136, 50) == 2
-    assert lib.gprf_mvn_ctas_per_sm(mvn.mvn_max_m(50), 50) >= 1
+    ctas_per_sm = getattr(_build.load().lib, query)
+    assert ctas_per_sm(136, 50) == 2
+    assert ctas_per_sm(mvn.mvn_max_m(50), 50) == 1
 
 
-@pytest.mark.parametrize("B,m", [(3, 37), (5, 136), (2, 240), (1, 1), (4, 65)])
+# K5's 16-wide blocking, as K1's: one block, ragged and full last blocks, the
+# flagship width, the first capacity growth, the seismic width and the cap
+@pytest.mark.parametrize("B,m", [(3, 37), (5, 136), (2, mvn.MAX_M_CHOL), (1, 1), (4, 65), (3, 2),
+                                 (2, 3), (3, 15), (3, 16), (3, 17), (3, 33), (5, 152), (2, 192)])
 def test_cholesky_kernel(dev, B, m):
     rng = np.random.default_rng(m)
     K = torch.as_tensor(_spd(rng, B, m, rng.integers(m // 2, m + 1, size=B)), device=dev)
@@ -397,15 +461,17 @@ def test_cholesky_kernel(dev, B, m):
     assert torch.all(torch.triu(L, 1) == 0)
 
 
-@pytest.mark.parametrize("B,m,dy", [(3, 37, 5), (9, 136, 50), (2, 158, 50), (4, 40, 1),
-                                    (2, 169, 1), (3, 40, 200), (1, 1, 3)])
+# K4's 16-wide blocking, as K2's: one block, ragged and full last blocks, the
+# flagship width, the first capacity growth and the caps at dy = 50, 1, 51
+# and 256; dy ragged against the 4-wide columns and 16-wide tiles of Z
+@pytest.mark.parametrize("B,m,dy", [(3, 37, 5), (9, 136, 50), (2, mvn.mvn_max_m(50), 50),
+                                    (4, 40, 1), (2, 169, 1), (3, 40, 200), (1, 1, 3), (2, 1, 256),
+                                    (3, 2, 5), (3, 3, 51), (3, 15, 5), (3, 16, 50), (3, 17, 1),
+                                    (3, 33, 256), (4, 65, 51), (5, 152, 50), (4, 136, 5),
+                                    (2, mvn.mvn_max_m(1), 1), (2, mvn.mvn_max_m(51), 51),
+                                    (2, mvn.mvn_max_m(256), 256)])
 def test_mvn_inv_kernel(dev, B, m, dy):
-    rng = np.random.default_rng(m + dy)
-    n_active = rng.integers(m // 2, m + 1, size=B)
-    K = torch.as_tensor(_spd(rng, B, m, n_active), device=dev)
-    mask = torch.as_tensor(np.arange(m)[None, :] < n_active[:, None], device=dev)
-    Y = torch.as_tensor(rng.normal(size=(B, m, dy)), device=dev) * mask[:, :, None]
-    na = torch.as_tensor(n_active, dtype=torch.float64, device=dev)
+    K, Y, na = _mvn_inputs(dev, B, m, dy)
     mvn.reset_launch_counts()
     ll, W, Z = mvn.mvn_ll_inv(K.float(), Y.float(), na.float())
     torch.cuda.synchronize()
@@ -501,6 +567,7 @@ def test_route_wrappers_reject_what_the_kernels_do_not_take(dev):
     K = torch.eye(8, device=dev).expand(2, 8, 8).contiguous()
     Y = torch.zeros(2, 8, 3, device=dev)
     n = torch.full((2,), 8.0, device=dev)
+    cap = mvn.mvn_max_m(50)  # K4's, as K2's
     with pytest.raises(TypeError):
         mvn.cholesky(K.double())
     with pytest.raises(ValueError):
@@ -512,14 +579,14 @@ def test_route_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         mvn.mvn_ll_inv(K, Y, torch.zeros(3, device=dev))
     with pytest.raises(ValueError):
-        mvn.mvn_ll_inv(torch.eye(159, device=dev)[None], torch.zeros(1, 159, 50, device=dev),
-                       torch.ones(1, device=dev))
+        mvn.mvn_ll_inv(torch.eye(cap + 1, device=dev)[None],
+                       torch.zeros(1, cap + 1, 50, device=dev), torch.ones(1, device=dev))
     with pytest.raises(ValueError):
         mvn.mvn_ll_inv(K, torch.zeros(2, 8, 257, device=dev), n)
     mvn.reset_launch_counts()
     # the largest shapes the gates admit do launch
     mvn.cholesky(torch.eye(240, device=dev)[None])
-    mvn.mvn_ll_inv(torch.eye(158, device=dev)[None], torch.zeros(1, 158, 50, device=dev),
+    mvn.mvn_ll_inv(torch.eye(cap, device=dev)[None], torch.zeros(1, cap, 50, device=dev),
                    torch.ones(1, device=dev))
     torch.cuda.synchronize()
     assert mvn.launch_counts["cholesky"] == 1 and mvn.launch_counts["mvn_ll_inv"] == 1

@@ -200,17 +200,24 @@ def test_route_functions_match_twin_autograd(rng):
 
 
 def test_route_caps_follow_shared_memory():
-    """K5 holds (m^2 + m) floats, K4 (2 m^2 + m dy + m) plus its partial
-    sums; the gate is that formula and dy <= 256."""
+    """K5 holds K1's blocked working set (mp^2 floats and the factor's 1 KB
+    block, mp = 16 ceil(m/16)) and K4 holds K2's (mp^2 + mp dyp floats, the
+    block and 8 partial sums); the gates are those formulas and dy <= 256."""
     m = mvn.MAX_M_CHOL
-    assert (m * m + m) * 4 <= mvn.SMEM_BYTES < ((m + 1) ** 2 + m + 1) * 4
-    assert m == 240
-    assert mvn.mvn_inv_supported(158, 50) and not mvn.mvn_inv_supported(159, 50)
-    assert mvn.mvn_inv_smem_bytes(158, 50) == 231_944 + 64
-    assert mvn.mvn_inv_supported(136, 50)
+    assert m == mvn.MAX_M_CHOL_INV == 240
+    assert mvn.chol_inv_smem_bytes(m) <= mvn.SMEM_BYTES < mvn.chol_inv_smem_bytes(m + 1)
+    assert mvn.chol_inv_smem_bytes(m) == (240 * 240 + 16 * 16) * 4
+    assert mvn.mvn_inv_supported(208, 50) and not mvn.mvn_inv_supported(209, 50)
+    assert mvn.mvn_smem_bytes(208, 50) <= mvn.SMEM_BYTES < mvn.mvn_smem_bytes(209, 50)
+    assert mvn.mvn_smem_bytes(208, 50) == (208 * 208 + 208 * 52 + 16 * 16 + 8) * 4
+    assert mvn.mvn_smem_bytes(136, 50) == 112_896 + 1_024 + 32
+    assert mvn.mvn_inv_supported(136, 50) and mvn.mvn_inv_supported(192, 50)
     assert mvn.mvn_inv_supported(40, 256) and not mvn.mvn_inv_supported(8, 257)
-    # the kernel's register slices cover 6 x 32 columns; shared memory stops first
-    assert mvn.mvn_inv_supported(169, 1) and not mvn.mvn_inv_supported(170, 1)
+    # K4 takes what K2 takes, at every dy
+    for dy in (1, 5, 50, 51, 256):
+        cap = mvn.mvn_max_m(dy)
+        assert mvn.mvn_inv_supported(cap, dy) and not mvn.mvn_inv_supported(cap + 1, dy)
+    assert mvn.mvn_max_m(1) == 224 and mvn.mvn_max_m(256) == 144
 
 
 def test_mvn_leaves_take_k4_where_it_fits():
@@ -233,7 +240,11 @@ def test_mvn_leaves_take_k4_where_it_fits():
         return list(calls)
 
     assert run(136, 50, mvn_inv=True) == [("mvn_ll_inv", 136)]
-    assert run(200, 50, mvn_inv=True) == [("mvn_ll", 200)]
+    assert run(200, 50, mvn_inv=True) == [("mvn_ll_inv", 200)]
+    assert run(208, 50, mvn_inv=True) == [("mvn_ll_inv", 208)]
+    # a forced leaf above K4's gate (mvn_max_m(50) = 208) runs mvn_ll
+    assert run(216, 50, mvn_inv=True, leaf_mvn=216) == [("mvn_ll", 216)]
+    assert run(160, 256, mvn_inv=True, leaf_mvn=160) == [("mvn_ll", 160)]
     assert run(136, 50) == [("mvn_ll", 136)]
     assert run(40, 3, mvn_inv=True, leaf_mvn=16, leaf_chol=16) == [("mvn_ll_inv", 16)]
 
