@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""GPU smoke run of gprf_torch: the flagship fused-Schur L-BFGS path on one card,
-on each of the objective's three routes.
+"""GPU smoke run of gprf_torch on one card: the kernels, the flagship
+fused-Schur L-BFGS path on each of the objective's three routes, and the
+synthetic experiment end to end through its command line.
 
     python3 chip_smoke.py        (from the repository root; needs one CUDA device)
 
@@ -20,7 +21,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
              m=240, K2 and K4 at m=208 (dy=50), K3 at m=224; K1, K2, K4 and
              K5 must fit 2 CTAs an SM at m=136.  cholesky_split at
              [4,248,248] (past K5's cap: K5 leaves and K3) against the
-             twin's Cholesky.
+             twin's Cholesky, and chol_inv_split, tri_inv_split and
+             mvn_ll_split one notch past their leaves' caps (m=248, 232,
+             216), forward and backward, with their leaves' launches.
 4. routes  - the flagship problem (synthetic n=10,000, 100 grid blocks
              padded to m=136, 180 axis-only edges, dy=50, task=x) on each
              route of the objective (ROUTES): one loss+grad with the
@@ -31,8 +34,31 @@ Phases, each of which raises on failure (exit code 1, no result line):
 5. lbfgs   - per route, with the launch counters reset just before and read
              just after: the default route runs 2 dispatches of 25
              scan-L-BFGS steps, the other two one dispatch each from the
-             same start at m=136; each run must launch its route's kernels
-             and none that the route does not run.
+             same start at m=136, all under the drivers' capacity-growth
+             policy (GrowingRunner); each run must launch its route's
+             kernels and none that the route does not run.
+6. cli     - ``gprf_torch.cli.gprfopt.main`` at the command line's flagship
+             (n=10,000 + 500 test points, 100 blocks, 342 edges with the
+             diagonal ones, Y a GP draw, dy=50, task x, device engine, 100
+             iterations) into a temporary GPRF_EXPERIMENTS, counters reset
+             before and read after: log.txt, step_*_X.npy,
+             optimizer_state.npz, results.txt and finished must exist, the
+             logged objective must be finite and end above where it began,
+             the last row's mad below the first's, the trueX row finite,
+             K1-K3 launched and K4, K5 not.  Seconds of sampling, fitting
+             and analysis apart; device-busy ms of one loss+grad at these
+             shapes; K1, K2 and K3 each against its twin, timed, on the
+             inputs this path gives them ([100,136,136], [342,136,136] +
+             [342,136,50]).
+7. host    - the same data with ``--engine host`` for a few seconds:
+             GPRF.llgrad under scipy launches K1-K3 and the objective
+             rises; then GPRF.update_X across a change of the padded width
+             m, the kernels against the twins on both sides of it, the whole
+             llgrad and then K1, K2 and K3 each on the re-blocked model's
+             inputs ([342,176,176]).
+8. resume  - a device-engine run stopped after two dispatches and resumed
+             from optimizer_state.npz: no step index twice in log.txt.
+9. bench   - ``gprf_torch.bench``'s record, logged.
 
 Output: a JSON line describing each kernel (its launches on the main path,
 its max abs error against its twin, its ms, its twin's, its library call's
@@ -41,10 +67,14 @@ and its bound), the nvidia-smi line, and last
 Imports nothing of JAX.
 """
 
+import contextlib
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,7 +84,12 @@ N, NBLOCKS, DY = 10_000, 100, 50
 LSCALE, OBS_STD, NOISE_VAR = 0.06, 0.02, 0.01
 M0 = 136  # the flagship's padded block width
 STEPS = 25
-MAX_GROWTHS = 16  # capacity growths of 16 slots each before giving up
+# The command line's flagship (the README's), at 100 iterations
+CLI_FLAGS = ["--ntrain", "10000", "--ntest", "500", "--nblocks", "100", "--lscale", "0.06",
+             "--obs_std", "0.02", "--local_dist", "0.1", "--task", "x"]
+CLI_ITERS = 100
+CLI_EDGES = 342  # axis and diagonal neighbors of the 10 x 10 grid
+HOST_SECONDS = 5
 
 # route -> (FusedGridGPRF options, L-BFGS dispatches, kernels its run must
 # launch, kernels it must not launch at m = 136)
@@ -76,6 +111,8 @@ TRI_INV_WIDTHS = (152, 224)
 MVN_WIDTHS = (152, 208)
 # cholesky_split's check: wider than K5's cap (240), so it splits
 CHOL_SPLIT_SHAPE = (4, 248)
+# the other compositions' checks, each one notch (8) past its leaf kernel's cap
+SPLIT_WIDTHS = {"chol_inv": 248, "tri_inv": 232, "mvn_ll": 216}
 # the route whose L-BFGS run gives each kernel's launch count
 KERNEL_ROUTE = {"chol_inv": "default", "mvn_ll": "default", "tri_inv": "default",
                 "mvn_ll_inv": "mvn_inv", "cholesky": "unary_doubling"}
@@ -152,32 +189,27 @@ def bound(name, args):
 
 
 def build_problem(torch, dev):
-    """The flagship problem from numpy, seed 0, as bench.py builds it."""
-    from gprf_torch.model.fused import FusedGridGPRF
-    from gprf_torch.partition.grid import Blocker, grid_centers
-    from gprf_torch.utils.convert import cov_from_numpy
+    """The flagship problem as the bench builds it (bench.py's, seed 0)."""
+    from gprf_torch.bench import build_problem as bench_problem
 
-    rng = np.random.default_rng(0)
-    SX = rng.uniform(size=(N, 2))
-    X_obs = SX + rng.standard_normal(SX.shape) * OBS_STD
-    Y = rng.standard_normal((N, DY))
-    b = Blocker(grid_centers(NBLOCKS))
-    edges = b.neighbors(diag_connections=False)
-    cov = cov_from_numpy([1.0], [LSCALE, LSCALE], device=dev, dtype=torch.float32)
-    fused = FusedGridGPRF(X_obs, Y, b.block_centers, edges, X_obs, OBS_STD, cov,
-                          NOISE_VAR, device=dev, dtype=torch.float32)
-    if (fused.m, len(edges)) != (M0, 180):
-        raise AssertionError(f"flagship layout is m={fused.m}, E={len(edges)}; want 136, 180")
+    fused, X_obs = bench_problem(dev, torch.float32, n=N, nblocks=NBLOCKS, yd=DY, lscale=LSCALE,
+                                 obs_std=OBS_STD)
+    if (fused.m, int(fused.edges.shape[0])) != (M0, 180):
+        raise AssertionError(f"flagship layout is m={fused.m}, E={fused.edges.shape[0]}; "
+                             "want 136, 180")
     return fused, X_obs
 
 
-def flagship_inputs(fused, x_flat, torch):
-    """Each kernel's inputs as the main path gives them at the flagship
-    point, recorded from one loss of the default route on the twins: K1 the
-    padded unary blocks [100, 136, 136]; K2 the pair Schur complements
-    [180, 136, 136], their right-hand sides [180, 136, 50] and active counts
-    [180]; K3 the pair factors [180, 136, 136] that K2's backward inverts.
+def recorded_inputs(holder, evaluate):
+    """Each kernel's inputs as a path gives them, recorded from one
+    evaluation of the default route on the twins (``holder.ops`` is pointed
+    at recording twins for the call of ``evaluate`` and back at the kernels
+    after it): K1 the padded unary blocks [B, m, m]; K2 the pair Schur
+    complements [E, m, m], their right-hand sides [E, m, dy] and active
+    counts [E]; K3 the pair factors [E, m, m] that K2's backward inverts.
     K5 factors K1's blocks on its route and K4 takes K2's inputs on its."""
+    import torch
+
     from gprf_torch.ops import mvn
 
     seen = {}
@@ -188,18 +220,24 @@ def flagship_inputs(fused, x_flat, torch):
             return fn(*args)
         return f
 
-    fused.ops = mvn.Ops(*(recorded(n, f) for n, f in zip(mvn.Ops._fields, mvn.PLAIN_OPS)))
-    x0 = torch.as_tensor(x_flat, dtype=fused.dtype, device=fused.device)
+    holder.ops = mvn.Ops(*(recorded(n, f) for n, f in zip(mvn.Ops._fields, mvn.PLAIN_OPS)))
     with torch.no_grad():
-        fused.loss_fn()(x0)
-    fused.ops = mvn.KERNEL_OPS
+        evaluate()
+    holder.ops = mvn.KERNEL_OPS
     seen["tri_inv"] = (mvn.mvn_ll_plain(*seen["mvn_ll"])[1],)
     seen["mvn_ll_inv"] = seen["mvn_ll"]
     seen["cholesky"] = seen["chol_inv"]
     return seen
 
 
-def compare(c, args, torch):
+def flagship_inputs(fused, x_flat, torch):
+    """The inputs of one loss of a fused engine at the point x_flat: at the
+    bench's flagship [100, 136, 136], [180, 136, 136] and [180, 136, 50]."""
+    x0 = torch.as_tensor(x_flat, dtype=fused.dtype, device=fused.device)
+    return recorded_inputs(fused, lambda: fused.loss_fn()(x0))
+
+
+def compare(c, args, torch, what=""):
     """One kernel against its twin on the same inputs: forward normwise rel
     err, backward rel err, forward max abs err, kernel ms, twin ms, the
     library call's ms (None where there is none), the bound, and the
@@ -237,7 +275,7 @@ def compare(c, args, torch):
     r = dict(fwd_rel_err=fwd, bwd_rel_err=bwd, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
              one_matrix_ms=one_matrix_ms)
-    log(f"kernel {c['name']} {[tuple(a.shape) for a in args]}: fwd rel err {fwd:.3e}, "
+    log(f"{what}kernel {c['name']} {[tuple(a.shape) for a in args]}: fwd rel err {fwd:.3e}, "
         f"bwd rel err {bwd:.3e}, {ms:.4f} ms vs twin {plain_ms:.4f} ms, library "
         f"{'-' if library_ms is None else f'{library_ms:.4f} ms'}, bound {bound_ms:.4f} ms "
         f"({bound_by}); one matrix alone {one_matrix_ms:.4f} ms")
@@ -274,6 +312,66 @@ def check_cholesky_split(gen, torch, dev):
     return dict(shape=[B, m, m], rel_err=fwd, check_launches=launches)
 
 
+def check_splits(gen, torch, dev):
+    """chol_inv_split, tri_inv_split and mvn_ll_split just past their leaf
+    kernels' caps (K1 240, K3 224, K2 208 at dy = 50), as a fit whose blocks
+    grow that wide runs them: each over the kernels against its twin on the
+    whole matrix, forward and backward, and it must launch its leaves."""
+    from gprf_torch.ops import mvn
+    from gprf_torch.ops.split_mvn import chol_inv_split, mvn_ll_split, tri_inv_split
+
+    B = CHOL_SPLIT_SHAPE[0]
+    caps = {"chol_inv": mvn.MAX_M_CHOL_INV, "tri_inv": mvn.MAX_M_TRI_INV,
+            "mvn_ll": mvn.mvn_max_m(DY)}
+    K, _ = seeded_factors(B, SPLIT_WIDTHS["chol_inv"], gen, torch, dev)
+    pair = seeded_mvn_inputs(B, SPLIT_WIDTHS["mvn_ll"], gen, torch, dev)
+    # A split reads K's lower blocks only and the twin both halves, so the
+    # two gradients agree on symmetric changes of K: their symmetric parts
+    # are compared (of L, the lower triangles).
+    def sym(g):
+        return (g + g.mT) / 2
+
+    checks = {
+        # name -> (composition, twin, inputs, leaves it must launch, part of d/d matrix)
+        "chol_inv": (chol_inv_split, mvn.chol_inv_plain, (K.float().contiguous(),),
+                     {"chol_inv": 2}, sym),
+        "tri_inv": (tri_inv_split, mvn.tri_inv_plain,
+                    (seeded_factors(B, SPLIT_WIDTHS["tri_inv"], gen, torch, dev)[1],),
+                    {"tri_inv": 2}, torch.tril),
+        "mvn_ll": (mvn_ll_split, lambda *a: mvn.mvn_ll_plain(*a)[0], pair,
+                   {"chol_inv": 1, "mvn_ll": 1}, sym),
+    }
+    out = {}
+    for name, (split, plain, args, leaves, part) in checks.items():
+        if not args[0].shape[-1] > caps[name]:
+            raise AssertionError(f"{name}_split's check at m={args[0].shape[-1]} does not split")
+        grads, outs = [], []
+        mvn.reset_launch_counts()
+        for f in (split, plain):
+            ins = [a.clone().requires_grad_(a.dim() == 3) for a in args]
+            res = f(*ins)
+            res = res if isinstance(res, tuple) else (res,)
+            if f is split:  # the same cotangents for both
+                cots = [torch.randn(r.shape, generator=gen, device=dev) for r in res]
+            g = torch.autograd.grad(res, [t for t in ins if t.requires_grad], cots)
+            grads.append((part(g[0]), *g[1:]))
+            outs.append([r.detach() for r in res])
+            if f is split:
+                torch.cuda.synchronize()
+                launches = {k: mvn.launch_counts[k] for k in leaves}
+        fwd = max(rel_err(a, b) for a, b in zip(*outs))
+        bwd = max(rel_err(a, b) for a, b in zip(*grads))
+        log(f"{name}_split {[tuple(a.shape) for a in args]}: fwd rel err {fwd:.3e}, bwd rel err "
+            f"{bwd:.3e} vs its twin, launches (forward and backward) {launches}")
+        if any(launches[k] < n for k, n in leaves.items()) or not (fwd <= RTOL_FWD
+                                                                   and bwd <= RTOL_BWD):
+            raise AssertionError(f"{name}_split at m={args[0].shape[-1]}: launches {launches}, "
+                                 f"fwd {fwd:.3e}, bwd {bwd:.3e}")
+        out[name] = dict(shape=[list(a.shape) for a in args], fwd_rel_err=fwd, bwd_rel_err=bwd,
+                         check_launches=launches)
+    return out
+
+
 def seeded_mvn_inputs(B, m, gen, torch, dev):
     """K2's inputs at width m: Kp = A A^T / m + I in float32, Y [B, m, DY]
     seeded normal, every row active."""
@@ -282,47 +380,70 @@ def seeded_mvn_inputs(B, m, gen, torch, dev):
     return K.float().contiguous(), Y, torch.full((B,), float(m), device=dev)
 
 
-def check_kernels(fused, x_flat, torch):
-    from gprf_torch.ops import _build, mvn
-
-    inputs = flagship_inputs(fused, x_flat, torch)
-    gen = torch.Generator(device=fused.device).manual_seed(1)
+def kernel_cases(gen, torch, dev):
+    """name -> how to hold that kernel against its twin (compare's ``c``)."""
+    from gprf_torch.ops import mvn
 
     def randn_like(t):
         return torch.randn(t.shape, generator=gen, device=t.device, dtype=t.dtype)
 
-    dev = fused.device
-    eyes = {m: torch.eye(m, device=dev) for m in (M0, *TRI_INV_WIDTHS)}
+    eyes = {}
+
+    def eye_like(L):
+        m = L.shape[-1]
+        if m not in eyes:
+            eyes[m] = torch.eye(m, device=dev)
+        return eyes[m].expand(L.shape)
+
     cases = {
         "chol_inv": dict(
             source="gprf_torch/csrc/chol_inv.cu", replaces="gprf_tpu/ops/pallas_mvn.py:411",
-            args=inputs["chol_inv"], kernel=mvn.chol_inv, plain=mvn.chol_inv_plain,
+            kernel=mvn.chol_inv, plain=mvn.chol_inv_plain,
             fn=mvn.CholInv.apply, cot=lambda out: [randn_like(o) for o in out]),
         "mvn_ll": dict(
             source="gprf_torch/csrc/mvn.cu", replaces="gprf_tpu/ops/pallas_mvn.py:592",
-            args=inputs["mvn_ll"], kernel=mvn.mvn_ll, plain=mvn.mvn_ll_plain,
+            kernel=mvn.mvn_ll, plain=mvn.mvn_ll_plain,
             fn=mvn.MvnLL.apply, cot=lambda out: [randn_like(out[0])]),
         "tri_inv": dict(
             source="gprf_torch/csrc/tri_inv.cu", replaces="gprf_tpu/ops/pallas_mvn.py:259",
-            args=inputs["tri_inv"], kernel=mvn.tri_inv, plain=mvn.tri_inv_plain,
+            kernel=mvn.tri_inv, plain=mvn.tri_inv_plain,
             fn=mvn.TriInv.apply, cot=lambda out: [randn_like(out[0])],
-            library=lambda L: torch.linalg.solve_triangular(L, eyes[L.shape[-1]].expand(L.shape),
-                                                            upper=False)),
+            library=lambda L: torch.linalg.solve_triangular(L, eye_like(L), upper=False)),
         "mvn_ll_inv": dict(
             source="gprf_torch/csrc/mvn_inv.cu", replaces="gprf_tpu/ops/pallas_mvn.py:771",
-            args=inputs["mvn_ll_inv"], kernel=mvn.mvn_ll_inv, plain=mvn.mvn_ll_inv_plain,
+            kernel=mvn.mvn_ll_inv, plain=mvn.mvn_ll_inv_plain,
             fn=mvn.MvnLLInv.apply, cot=lambda out: [randn_like(out[0])]),
         "cholesky": dict(
             source="gprf_torch/csrc/chol_inv.cu", replaces="gprf_tpu/ops/pallas_mvn.py:144",
-            args=inputs["cholesky"], kernel=mvn.cholesky, plain=mvn.cholesky_plain,
+            kernel=mvn.cholesky, plain=mvn.cholesky_plain,
             fn=mvn.Cholesky.apply, cot=lambda out: [randn_like(out[0])],
             library=lambda K: torch.linalg.cholesky_ex(K)),
     }
-    report = {}
     for name, c in cases.items():
         c["name"] = name
+    return cases
+
+
+def check_path_kernels(what, inputs, cases, torch):
+    """K1, K2 and K3 (the default route's kernels) against their twins on
+    the inputs a main path gave them: name -> compare's record and shape."""
+    out = {}
+    for name in ("chol_inv", "mvn_ll", "tri_inv"):
+        args = inputs[name]
+        out[name] = dict(shape=list(args[0].shape) + [a.shape[-1] for a in args[1:2]],
+                         **compare(cases[name], args, torch, what=f"{what}: "))
+    return out
+
+
+def check_kernels(fused, x_flat, cases, gen, torch):
+    from gprf_torch.ops import _build, mvn
+
+    inputs = flagship_inputs(fused, x_flat, torch)
+    dev = fused.device
+    report = {}
+    for name, c in cases.items():
         report[name] = dict(name=name, route="cuda", source=c["source"], replaces=c["replaces"],
-                            launches=0, **compare(c, c["args"], torch))
+                            launches=0, **compare(c, inputs[name], torch))
 
     # Every kernel past the flagship width, on as many matrices as the
     # flagship has unary blocks (K1, K5) or pairs (K2, K3, K4):
@@ -367,10 +488,12 @@ def check_kernels(fused, x_flat, torch):
             raise AssertionError(f"{name} fits {report[name]['ctas_per_sm']} CTAs an SM at "
                                  f"m={M0}; its design needs 2")
     report["cholesky"]["split"] = check_cholesky_split(gen, torch, dev)
+    for name, record in check_splits(gen, torch, dev).items():
+        report[name]["split"] = record
     return report
 
 
-def eval_ms(losses, x0, torch, reps=20):
+def eval_ms_in_turns(losses, x0, torch, reps=20):
     """Median host-clock ms of one loss+grad for each loss, taken in turns
     (a, b, b, a, ...) so that drift of the shared host hits both alike."""
     from gprf_torch.optim.lbfgs import value_and_grad
@@ -386,27 +509,6 @@ def eval_ms(losses, x0, torch, reps=20):
             if rep:  # the first round warms up
                 times[i].append((time.perf_counter() - t0) * 1e3)
     return [statistics.median(t) for t in times]
-
-
-def device_busy(loss, x0, torch, calls=5):
-    """(device-busy ms, kernel launches) of one loss+grad: the kernel events
-    of a torch.profiler trace over `calls` calls, summed, per call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from gprf_torch.optim.lbfgs import value_and_grad
-
-    value_and_grad(loss, x0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            value_and_grad(loss, x0)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith(("Memcpy", "Memset"))]
-    if not kernels:
-        raise AssertionError("torch.profiler recorded no kernel on the device")
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    return busy_us / 1e3 / calls, len(kernels) / calls
 
 
 def use_route(fused, route, ops):
@@ -429,6 +531,7 @@ def check_routes(fused, x0, torch):
     """Per route: one loss+grad on the kernels against the same route on the
     twins, and against the default route on the kernels; then ms/eval of
     every route on both, in turns."""
+    from gprf_torch.bench import device_busy
     from gprf_torch.ops import mvn
     from gprf_torch.optim.lbfgs import value_and_grad
 
@@ -448,13 +551,13 @@ def check_routes(fused, x0, torch):
             if not (loss_rel <= RTOL_LOSS and cosine > MIN_GRAD_COSINE):
                 raise AssertionError(f"route {route} disagrees, {against}: loss rel "
                                      f"{loss_rel:.3e}, cosine {cosine:.8f}")
-    ms = eval_ms(losses, x0, torch)
+    ms = eval_ms_in_turns(losses, x0, torch)
     for i, route in enumerate(ROUTES):
         report[route].update(ms_per_eval=ms[2 * i], plain_ms_per_eval=ms[2 * i + 1])
         log(f"route {route} ms/eval (loss + grad, median of 20 in turns): kernels "
             f"{ms[2 * i]:.3f}, twins {ms[2 * i + 1]:.3f}")
     for i, route in enumerate(ROUTES):
-        (busy, n), (plain_busy, plain_n) = (device_busy(losses[2 * i + t], x0, torch)
+        (busy, n), (plain_busy, plain_n) = (device_busy(losses[2 * i + t], x0)
                                             for t in (0, 1))
         report[route].update(device_busy_ms=busy, device_launches=n,
                              plain_device_busy_ms=plain_busy, plain_device_launches=plain_n)
@@ -465,12 +568,11 @@ def check_routes(fused, x0, torch):
 
 def run_lbfgs(fused, x0, route, torch):
     """The main path on one route: scan-L-BFGS over the fused loss from x0
-    at m = 136, counted.  A dispatch whose end points overflow the capacity
-    m (a block outgrew its slots, so some steps dropped points) is run again
-    at a grown capacity, as FusedGridGPRF.value_and_grad re-evaluates a
-    single step: the kept trajectory never dropped a point."""
+    at m = 136, counted, under the drivers' capacity-growth policy: after a
+    dispatch whose end points overflow the capacity m, the capacity grows
+    and the run goes on from the current point with its curvature memory."""
     from gprf_torch.ops import mvn
-    from gprf_torch.optim.lbfgs import make_scan_lbfgs_runner
+    from gprf_torch.optim.lbfgs import GrowingRunner
 
     _, dispatches, must, must_not = ROUTES[route]
     use_route(fused, route, mvn.KERNEL_OPS)
@@ -478,26 +580,18 @@ def run_lbfgs(fused, x0, route, torch):
     torch.cuda.synchronize()
     mvn.reset_launch_counts()
     t0 = time.perf_counter()
-    init_fn, run_fn = make_scan_lbfgs_runner(fused.loss_fn(), num_steps=STEPS,
-                                             aux_fn=fused.overflow_fn())
-    carry = init_fn(x0)
+    runner = GrowingRunner(fused, STEPS)
+    carry = runner.init_fn(x0)
     values, capacities, first_dispatch_s = [], [], None
     for _ in range(dispatches):
-        while True:
-            t_d = time.perf_counter()
-            out, (v, _, _, overflow) = run_fn(carry)
-            if not bool(overflow):
-                break
-            if len(capacities) >= MAX_GROWTHS:
-                raise AssertionError(f"capacity still overflows at m={fused.m}")
-            fused.grow_capacity()
-            capacities.append(fused.m)
-            init_fn, run_fn = make_scan_lbfgs_runner(fused.loss_fn(), num_steps=STEPS,
-                                                     aux_fn=fused.overflow_fn())
+        t_d = time.perf_counter()
+        carry, (v, _, _, overflow) = runner.run_fn(carry)
+        overflowed = bool(overflow)
         if first_dispatch_s is None:
-            torch.cuda.synchronize()
             first_dispatch_s = time.perf_counter() - t_d
-        carry = out
+        if overflowed:
+            carry = runner.grow(carry)
+            capacities.append(fused.m)
         values.append(v)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -505,7 +599,7 @@ def run_lbfgs(fused, x0, route, torch):
     values = torch.cat(values).double().cpu().numpy()
     v0 = float(values[0])
     ms_iter = first_dispatch_s / STEPS * 1e3
-    log(f"scan-L-BFGS, route {route}: {dispatches} x {STEPS} steps kept, {wall:.3f} s in all; "
+    log(f"scan-L-BFGS, route {route}: {dispatches} x {STEPS} steps, {wall:.3f} s in all; "
         f"first dispatch (m={M0}) {ms_iter:.3f} ms/iter; capacity grown to "
         f"{capacities or 'none'}; objective {v0:.4f} -> {float(values[-1]):.4f}; "
         f"launches {launches}")
@@ -513,14 +607,200 @@ def run_lbfgs(fused, x0, route, torch):
         raise AssertionError(f"non-finite L-BFGS values on route {route}: {values}")
     if not values[-1] < v0:
         raise AssertionError(f"objective did not decrease on route {route}: {v0} -> {values[-1]}")
-    skipped = [k for k in must if launches[k] < 1]
-    stray = [k for k in must_not if launches[k] != 0]
-    if skipped or stray:
-        raise AssertionError(f"route {route} skipped {skipped} or launched {stray}: "
-                             f"launches {launches}")
+    check_launches(f"route {route}", launches, must, must_not)
     return dict(lbfgs_dispatches=dispatches, lbfgs_ms_per_iter=ms_iter,
                 lbfgs_values=[v0, float(values[-1])], capacity_growths=capacities,
                 launches=launches)
+
+
+def check_launches(what, launches, must, must_not):
+    skipped = [k for k in must if launches[k] < 1]
+    stray = [k for k in must_not if launches[k] != 0]
+    if skipped or stray:
+        raise AssertionError(f"{what} skipped {skipped} or launched {stray}: launches {launches}")
+
+
+def read_log(d):
+    """(step indices, objective values) of a run directory's log.txt."""
+    from gprf_torch.optim.driver import load_log
+
+    steps, _, values = load_log(d)
+    if not len(steps) or not np.isfinite(values).all():
+        raise AssertionError(f"{d}: log.txt holds {len(steps)} rows, values {values}")
+    return steps, values
+
+
+def cli_engine(data, torch):
+    """The device engine as the command line builds it for task x."""
+    from gprf_torch.model.fused import FusedSyntheticGPRF
+
+    return FusedSyntheticGPRF(data.X_obs, data.SY, data.neighbors, data.X_obs, data.obs_std,
+                              data.cov, data.noise_var, task="x",
+                              centers=np.asarray(data.centers), device="cuda",
+                              dtype=torch.float32, acc_dtype=torch.float64)
+
+
+def run_cli(base, cases, torch):
+    """Phase 6: the command line's flagship on the device engine."""
+    from gprf_torch.analysis.results import load_final_results, load_results
+    from gprf_torch.bench import device_busy
+    from gprf_torch.cli import gprfopt
+    from gprf_torch.data.sampled import sample_data
+    from gprf_torch.ops import mvn
+    from gprf_torch.partition.grid import grid_centers
+
+    os.environ["GPRF_EXPERIMENTS"] = base
+    argv = CLI_FLAGS + ["--engine", "device", "--max_iters", str(CLI_ITERS)]
+    d = gprfopt.exp_dir(gprfopt.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    mvn.reset_launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        seconds = gprfopt.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(mvn.launch_counts)
+    files = sorted(os.listdir(d))
+    wanted = ["log.txt", "optimizer_state.npz", "results.txt", "finished",
+              "step_%05d_X.npy" % (CLI_ITERS - 1)]
+    if [f for f in wanted if f not in files]:
+        raise AssertionError(f"cli run left {files}; want {wanted}")
+    steps, values = read_log(d)
+    results = load_results(d)
+    final, true_row = load_final_results(d)
+    mad_first, mad_last = float(results[0, 4]), float(final["mad"])
+    log(f"cli (device engine): {len(steps)} iterations; objective {values[0]:.2f} -> "
+        f"{values[-1]:.2f}, at the true X {true_row['mll']:.2f} (without the X prior); mad "
+        f"{mad_first:.8f} -> {mad_last:.8f}; seconds: sampling {seconds['sample_s']:.2f} (the "
+        f"10,500-point float64 Cholesky, on the host), fitting {seconds['fit_s']:.2f}, analysis "
+        f"{seconds['analyze_s']:.2f}; launches {launches}")
+    if list(steps) != list(range(CLI_ITERS)):
+        raise AssertionError(f"cli run logged steps {steps[0]}..{steps[-1]} ({len(steps)})")
+    if not (values[-1] > values[0] and mad_last < mad_first and np.isfinite(true_row["mll"])):
+        raise AssertionError(f"cli run: objective {values[0]} -> {values[-1]}, mad {mad_first} "
+                             f"-> {mad_last}, trueX objective {true_row['mll']}")
+    check_launches("the cli run", launches, ("chol_inv", "mvn_ll", "tri_inv"),
+                   ("mvn_ll_inv", "cholesky"))
+
+    # the engine the run used, rebuilt on the cached data: its shapes, and
+    # the device time of one loss+grad at them
+    data = sample_data(n=10500, ntrain=10000, lscale=0.06, obs_std=0.02, yd=DY, seed=0,
+                       centers=grid_centers(NBLOCKS), noise_var=NOISE_VAR)
+    fused = cli_engine(data, torch)
+    E, m = int(fused.edges.shape[0]), fused.m
+    if E != CLI_EDGES:
+        raise AssertionError(f"the cli flagship has {E} edges; want {CLI_EDGES}")
+    x0 = torch.as_tensor(data.X_obs.reshape(-1), dtype=torch.float32, device="cuda")
+    loss = fused.loss_fn()
+    busy, n_launch = device_busy(loss, x0)
+    (eval_ms,) = eval_ms_in_turns([loss], x0, torch)
+    log(f"cli flagship shapes: E={E}, m={m} at X_obs (data-driven); one loss+grad: device busy "
+        f"{busy:.3f} ms ({n_launch:.0f} launches), host clock {eval_ms:.3f} ms (median of 20)")
+    # each kernel of this path against its twin on the inputs this path gives it
+    kernels = check_path_kernels(f"cli path, E={E}, m={m}",
+                                 flagship_inputs(fused, data.X_obs.reshape(-1), torch), cases, torch)
+    if kernels["mvn_ll"]["shape"] != [E, m, m, DY] or kernels["tri_inv"]["shape"] != [E, m, m]:
+        raise AssertionError(f"cli path kernels were held at {kernels['mvn_ll']['shape']}")
+    return dict(kernels=kernels, dir_files=files, iterations=len(steps), objective=[float(values[0]),
+                float(values[-1])], true_x_objective=float(true_row["mll"]),
+                mad=[mad_first, mad_last], seconds=seconds, launches=launches, edges=E, m=m,
+                device_busy_ms=busy, device_launches=n_launch, eval_ms=eval_ms), data
+
+
+def run_host(base, data, cases, torch):
+    """Phase 7: the host engine on the same data (its cache copied into a
+    base of its own: the run directory's name does not tell the engine), and
+    GPRF.update_X across a change of m."""
+    from gprf_torch.cli import gprfopt
+    from gprf_torch.ops import mvn
+
+    shutil.copytree(os.path.join(os.environ["GPRF_EXPERIMENTS"], "synthetic_datasets"),
+                    os.path.join(base, "synthetic_datasets"))
+    os.environ["GPRF_EXPERIMENTS"] = base
+    argv = CLI_FLAGS + ["--engine", "host", "--maxsec", str(HOST_SECONDS)]
+    d = gprfopt.exp_dir(gprfopt.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    mvn.reset_launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        seconds = gprfopt.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(mvn.launch_counts)
+    steps, values = read_log(d)
+    log(f"host engine (scipy over GPRF.llgrad, {HOST_SECONDS} s): {len(steps)} evaluations, "
+        f"{seconds['fit_s'] / len(steps) * 1e3:.2f} ms each with re-blocking, upload and "
+        f"checkpoint; objective {values[0]:.2f} -> {values.max():.2f}; launches {launches}")
+    if not (len(steps) >= 3 and values.max() > values[0]):
+        raise AssertionError(f"host engine: {len(steps)} evaluations, objective {values}")
+    check_launches("the host run", launches, ("chol_inv", "mvn_ll", "tri_inv"),
+                   ("mvn_ll_inv", "cholesky"))
+
+    # update_X across a change of m: pull points toward one block's center
+    # until it outgrows the padded width; kernels against twins at both widths
+    pair = [data.build_gprf(local_dist=0.1, device="cuda", dtype=torch.float32, ops=ops)
+            for ops in (mvn.KERNEL_OPS, mvn.PLAIN_OPS)]
+    widths, upload_ms, kernels = [], [], {}
+    X = data.X_obs.copy()
+    near = np.argsort(np.linalg.norm(X - data.centers[45], axis=1))[:pair[0].layout.block_pad + 40]
+    X_pulled = X.copy()
+    X_pulled[near] = data.centers[45] + (X[near] - data.centers[45]) * 0.5
+    for X_new in (X, X_pulled):
+        out = []
+        for g in pair:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g.update_X(X_new)
+            g._device_arrays()
+            torch.cuda.synchronize()
+            upload_ms.append((time.perf_counter() - t0) * 1e3)
+            ll, gX, _ = g.llgrad(grad_X=True)
+            out.append((ll, torch.as_tensor(gX.reshape(-1))))
+        widths.append(pair[0].layout.block_pad)
+        loss_rel, cosine = agreement(out[0], out[1])
+        log(f"GPRF.llgrad at m={widths[-1]}: ll {out[0][0]:.4f}, kernels vs twins rel "
+            f"{loss_rel:.3e}, gradient cosine {cosine:.8f}")
+        if not (loss_rel <= RTOL_LOSS and cosine > MIN_GRAD_COSINE):
+            raise AssertionError(f"GPRF.llgrad at m={widths[-1]} disagrees with the twins: rel "
+                                 f"{loss_rel:.3e}, cosine {cosine:.8f}")
+        if X_new is X_pulled:  # each kernel alone on the re-blocked model's inputs
+            kernels = check_path_kernels(
+                f"GPRF.llgrad after update_X, m={widths[-1]}",
+                recorded_inputs(pair[0], lambda: pair[0].llgrad(grad_X=False)), cases, torch)
+    if not widths[1] > widths[0]:
+        raise AssertionError(f"update_X did not cross a change of m: widths {widths}")
+    llgrad_ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        pair[0].llgrad(grad_X=True)  # ends in the copy of ll and gradX to the host
+        llgrad_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"GPRF.update_X crossed m {widths[0]} -> {widths[1]}; re-block on the host and upload of "
+        f"the layout: median {statistics.median(upload_ms):.2f} ms; GPRF.llgrad(grad_X=True) at "
+        f"m={widths[1]}: median {statistics.median(llgrad_ms):.2f} ms")
+    return dict(evaluations=len(steps), objective=[float(values[0]), float(values.max())],
+                seconds=seconds, launches=launches, widths=widths, kernels_after_update_x=kernels,
+                reblock_upload_ms=statistics.median(upload_ms),
+                llgrad_ms=statistics.median(llgrad_ms))
+
+
+def run_resume(base, data, torch):
+    """Phase 8: stop a device-engine run after two dispatches, resume it
+    from optimizer_state.npz, and read log.txt's step indices."""
+    from gprf_torch.optim.lbfgs import do_optimization_fused
+
+    d = os.path.join(base, "resumed")
+    os.makedirs(d)
+
+    do_optimization_fused(d, cli_engine(data, torch), data.X_obs, max_iters=40,
+                          steps_per_dispatch=20)
+    before, _ = read_log(d)
+    do_optimization_fused(d, cli_engine(data, torch), data.X_obs, max_iters=80,
+                          steps_per_dispatch=20, resume=True)
+    steps, values = read_log(d)
+    log(f"resume: {len(before)} rows, then resumed to {len(steps)}; objective "
+        f"{values[0]:.2f} -> {values[-1]:.2f}")
+    if list(before) != list(range(40)) or list(steps) != list(range(80)):
+        raise AssertionError(f"resumed log.txt has step indices {list(steps)}")
+    if not values[-1] > values[39] > values[0]:
+        raise AssertionError(f"resumed run did not go on rising: {values[0]}, {values[39]}, "
+                             f"{values[-1]}")
+    return dict(rows_before=len(before), rows_after=len(steps))
 
 
 def main():
@@ -547,18 +827,42 @@ def main():
 
     fused, X_obs = build_problem(torch, dev)
     x_flat = X_obs.reshape(-1)
-    report = check_kernels(fused, x_flat, torch)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = kernel_cases(gen, torch, dev)
+    report = check_kernels(fused, x_flat, cases, gen, torch)
     x0 = torch.as_tensor(x_flat, dtype=fused.dtype, device=fused.device)
     routes = check_routes(fused, x0, torch)
     for route in ROUTES:
         routes[route].update(run_lbfgs(fused, x0, route, torch))
     for name, route in KERNEL_ROUTE.items():
         report[name]["launches"] = routes[route]["launches"][name]
+    bench_edges = int(fused.edges.shape[0])
+    del fused
+
+    from gprf_torch import bench
+
+    experiments = os.environ.get("GPRF_EXPERIMENTS")
+    try:
+        with tempfile.TemporaryDirectory() as base, tempfile.TemporaryDirectory() as host_base:
+            cli, data = run_cli(base, cases, torch)
+            host = run_host(host_base, data, cases, torch)
+            resume = run_resume(host_base, data, torch)
+    finally:  # the phases pointed it at directories that are gone now
+        if experiments is None:
+            os.environ.pop("GPRF_EXPERIMENTS", None)
+        else:
+            os.environ["GPRF_EXPERIMENTS"] = experiments
+    for name in report:
+        report[name]["cli_launches"] = cli["launches"][name]
+        if name in cli["kernels"]:  # the same kernel at the command line's shapes
+            report[name]["cli"] = cli["kernels"][name]
+    bench_record = bench.run(dev, log=log)
+    log(f"bench: {json.dumps(bench_record)}")
 
     print(json.dumps({
         "kernels": list(report.values()),
-        "slice": {"n": N, "blocks": NBLOCKS, "m": M0, "edges": int(fused.edges.shape[0]),
-                  "dy": DY, "routes": routes},
+        "slice": {"n": N, "blocks": NBLOCKS, "m": M0, "edges": bench_edges, "dy": DY, "routes": routes,
+                  "cli": cli, "host": host, "resume": resume, "bench": bench_record},
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

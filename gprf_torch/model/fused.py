@@ -138,6 +138,12 @@ class FusedSyntheticGPRF:
             parts.append(np.log(C0.reshape(-1)) * self.COV_SCALE)
         return np.concatenate(parts)
 
+    @property
+    def ncov(self) -> int:
+        """Length of the packed-cov tail of theta (0 for task x): the
+        drivers read just ``theta[-ncov:]`` for the covs.txt trajectory."""
+        return 0 if self.task == "x" or self.C0 is None else self.C0.shape[1]
+
     def unpack_host(self, theta):
         """(X, FC) on the host from a flat theta."""
         theta = np.asarray(theta, dtype=np.float64)

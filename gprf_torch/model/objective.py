@@ -127,3 +127,29 @@ def gprf_ll_schur(params: GPRFParams, Y, assignment, mask, edges, unary_weights,
     return _schur_ll(params.X, Y, assignment, mask, edges, unary_weights, pair_weights,
                      cov, params.noise_var, acc_dtype=acc_dtype, ops=ops, mvn_inv=mvn_inv,
                      unary_doubling=unary_doubling)
+
+
+def gprf_value_and_grad_schur(params: GPRFParams, Y, assignment, mask, edges, unary_weights,
+                              pair_weights, dfn_str: str = "euclidean", wfn_str: str = "se",
+                              grad_X: bool = True, grad_cov: bool = False, acc_dtype=None,
+                              ops: Ops = KERNEL_OPS):
+    """(ll, gradX [n, dx], gradCov [1, 2 + k]) by autograd over
+    :func:`gprf_ll_schur`, the contract of ``GPRF.llgrad``.
+
+    gradCov's row is [d/d noise_var, d/d signal_var, d/d lengthscales].  A
+    gradient that is not asked for comes back as zeros of its shape."""
+    X = params.X.detach().requires_grad_(grad_X)
+    hyper = [t.detach().requires_grad_(grad_cov)
+             for t in (params.noise_var, params.wfn_params, params.dfn_params)]
+    p = GPRFParams(X=X, wfn_params=hyper[1], dfn_params=hyper[2], noise_var=hyper[0])
+    with torch.set_grad_enabled(grad_X or grad_cov):
+        ll = gprf_ll_schur(p, Y, assignment, mask, edges, unary_weights, pair_weights,
+                           dfn_str=dfn_str, wfn_str=wfn_str, acc_dtype=acc_dtype, ops=ops)
+    leaves = ([X] if grad_X else []) + (hyper if grad_cov else [])
+    grads = list(torch.autograd.grad(ll, leaves)) if leaves else []
+    gradX = grads.pop(0) if grad_X else torch.zeros_like(X)
+    if grad_cov:
+        gradCov = torch.cat([g.reshape(-1) for g in grads]).reshape(1, -1)
+    else:
+        gradCov = torch.zeros((1, sum(t.numel() for t in hyper)), dtype=X.dtype, device=X.device)
+    return ll.detach(), gradX, gradCov

@@ -1,5 +1,7 @@
-"""Scan-style L-BFGS with retrospective Armijo control (mirror of
-``make_scan_lbfgs_runner`` in ``gprf_tpu/optim/device_lbfgs.py``).
+"""Scan-style L-BFGS with retrospective Armijo control, and the drivers
+around it that keep the experiment's file protocol (mirror of
+``make_scan_lbfgs_runner``, ``do_optimization_fused`` and
+``do_optimization_fused_theta`` in ``gprf_tpu/optim/device_lbfgs.py``).
 
 Exactly one loss+gradient evaluation per iteration and no data-dependent
 control flow: step k evaluates the point proposed by step k-1; if the
@@ -12,7 +14,13 @@ per-dispatch outputs once.
 
 from __future__ import annotations
 
+import os
+import time
+
+import numpy as np
 import torch
+
+from gprf_torch.utils.io import save_step
 
 _F32_EPS = float(torch.finfo(torch.float32).eps)
 
@@ -126,3 +134,219 @@ def make_scan_lbfgs_runner(loss_fn, num_steps: int, memory_size: int = 10,
                        masked(carry["x_prev"]) | masked(carry["x"]))
 
     return init_fn, run_fn
+
+
+# ---- drivers: the file protocol around the runner ---------------------------
+
+class GrowingRunner:
+    """The scan-L-BFGS runner over a fused evaluator (``loss_fn``,
+    ``overflow_fn``, ``grow_capacity``) with the capacity-growth policy of
+    the drivers: when a dispatch reports that a block outgrew the padded
+    slot count, :meth:`grow` enlarges the capacity, rebuilds the runner on
+    the loss at the new capacity, and restarts the carry at the current
+    point, keeping the curvature memory and the step scale (the steps that
+    dropped points stay in the trajectory; their loss differed little)."""
+
+    KEPT = ("S", "Ymem", "rho", "valid", "head", "eta")
+
+    def __init__(self, fused, steps_per_dispatch: int):
+        self.fused = fused
+        self.steps_per_dispatch = steps_per_dispatch
+        self._make()
+
+    def _make(self):
+        self.init_fn, self.run_fn = make_scan_lbfgs_runner(
+            self.fused.loss_fn(), self.steps_per_dispatch, aux_fn=self.fused.overflow_fn())
+
+    def grow(self, carry):
+        self.fused.grow_capacity()
+        self._make()
+        return {**self.init_fn(carry["x"]), **{k: carry[k] for k in self.KEPT}}
+
+
+def _truncate_log_rows(path, it0):
+    """Drop rows with step index >= ``it0`` (and any trailer lines) from an
+    append-mode log so that a resumed run appends a monotone trajectory.
+
+    Optimizer-state snapshots ride a wall-clock cadence while log.txt and
+    covs.txt get rows every dispatch, so the saved state can lag the logs by
+    up to ``ckpt_every_sec``; the resumed run executes those iterations
+    again and would otherwise repeat their step indices."""
+    if not os.path.exists(path):
+        return
+    keep = []
+    with open(path) as f:
+        for line in f:
+            parts = line.split(None, 1)
+            try:
+                step = int(parts[0])
+            except (ValueError, IndexError):
+                continue
+            if step < it0:
+                keep.append(line)
+    with open(path, "w") as f:
+        f.writelines(keep)
+
+
+def save_optimizer_state(d, carry, it: int):
+    """Checkpoint the whole scan-L-BFGS carry (point, gradient, curvature
+    memory), each entry at its own dtype, so a run resumes mid-optimization
+    on the same trajectory."""
+    flat = {k: v.detach().cpu().numpy() for k, v in carry.items()}
+    flat["__iter__"] = np.asarray(it)
+    np.savez(os.path.join(d, "optimizer_state.npz"), **flat)
+
+
+def load_optimizer_state(d, device: torch.device | str):
+    """(carry on ``device``, it) from a saved optimizer checkpoint, or
+    (None, 0).  Each tensor comes back at the dtype it was saved with
+    (``first`` and ``valid`` bool, ``head`` int64)."""
+    path = os.path.join(d, "optimizer_state.npz")
+    if not os.path.exists(path):
+        return None, 0
+    with np.load(path) as z:
+        it = int(z["__iter__"])
+        carry = {k: torch.as_tensor(z[k], device=device) for k in z.files if k != "__iter__"}
+    return carry, it
+
+
+def _fc_from_tail(fused, tail, ntheta):
+    """The host-side cov row from just the packed-cov tail of theta, through
+    the evaluator's own ``unpack_host`` on a zero-padded vector (the X
+    segment does not influence FC)."""
+    full = np.zeros(ntheta, dtype=np.float64)
+    full[ntheta - tail.size:] = tail
+    return fused.unpack_host(full)[1]
+
+
+def do_optimization_fused_theta(d, fused, theta0, maxsec: float = 3600, max_iters: int = 600,
+                                steps_per_dispatch: int = 20, ftol: float = 1e-6,
+                                resume: bool = False, ckpt_every_sec: float = 10.0,
+                                stall_patience: int = 4):
+    """Device-loop driver over a theta-packed fused evaluator
+    (:class:`~gprf_torch.model.fused.FusedSyntheticGPRF`): log.txt rows per
+    L-BFGS iteration, step X / cov checkpoints through the theta unpacking,
+    covs.txt for hyperparameter trajectories, the ``finished`` marker, and
+    the optimizer state for ``resume``.
+
+    Per dispatch one small tensor crosses to the host: the step values, the
+    overflow flag and, on cov-bearing tasks, the cov tail of the last
+    evaluated point.  theta and the (memory x n) optimizer state cross only
+    on the ``ckpt_every_sec`` cadence and after the last dispatch.
+
+    When a block outgrows the padded slot count the capacity grows and the
+    run goes on from the current point (:class:`GrowingRunner`).
+
+    Returns the final flat theta (float64 on the host)."""
+    dev, dtype = fused.device, fused.dtype
+    ncov = fused.ncov
+    ntheta = int(np.asarray(theta0).size)
+
+    runner = GrowingRunner(fused, steps_per_dispatch)
+    it = 0
+    carry = None
+    if resume:
+        carry, it = load_optimizer_state(d, dev)
+    if carry is None:
+        carry = runner.init_fn(torch.as_tensor(np.asarray(theta0).reshape(-1), dtype=dtype, device=dev))
+        it = 0
+    appending = bool(resume and it)
+    if appending:
+        _truncate_log_rows(os.path.join(d, "log.txt"), it)
+        _truncate_log_rows(os.path.join(d, "covs.txt"), it)
+    f_log = open(os.path.join(d, "log.txt"), "a" if appending else "w")
+    # covs.txt only on cov-bearing tasks
+    covf = open(os.path.join(d, "covs.txt"), "a" if appending else "w") if ncov else None
+    t0 = time.time()
+    prev_best = np.inf
+    stall = 0
+    last_ckpt = -np.inf
+
+    def theta_host():
+        return carry["x"].double().cpu().numpy()
+
+    def checkpoint(it_base):
+        theta = theta_host()
+        # never leave a non-finite step_*_X.npy for the analysis to read
+        if not np.all(np.isfinite(theta)):
+            raise FloatingPointError("optimizer diverged to non-finite theta")
+        X, FC = fused.unpack_host(theta)
+        # the index of this dispatch's last logged row, so the analysis
+        # finds a checkpoint for the final step
+        save_step(d, it_base + steps_per_dispatch - 1, X=X, FC=FC)
+        save_optimizer_state(d, carry, it_base + steps_per_dispatch)
+
+    try:
+        while it < max_iters and time.time() - t0 < maxsec:
+            carry, (step_values, _, _, overflow) = runner.run_fn(carry)
+            # the cov tail of the last EVALUATED point (x_prev; carry["x"]
+            # is the next proposal), so the covs.txt row pairs with the
+            # logged objective
+            out = torch.cat([step_values.double(), overflow.double().reshape(1),
+                             carry["x_prev"][ntheta - ncov:].double()]).cpu().numpy()
+            values = -out[:steps_per_dispatch]  # stored as nll, logged as ll
+            tail = out[steps_per_dispatch + 1:]
+            if not np.all(np.isfinite(values)):
+                raise FloatingPointError("optimizer diverged to non-finite objective")
+            if out[steps_per_dispatch]:
+                carry = runner.grow(carry)
+                # as in the reference, the restarted carry's last evaluated
+                # point is the current one, and this dispatch's row shows it
+                tail = carry["x_prev"][ntheta - ncov:].double().cpu().numpy()
+            now = time.time() - t0
+            if now - last_ckpt >= ckpt_every_sec:
+                checkpoint(it)
+                last_ckpt = now
+            for k, v in enumerate(values):
+                f_log.write("%d %.2f %.2f\n" % (it + k, now, float(v)))
+            f_log.flush()
+            if covf is not None:
+                covf.write("%d %s\n" % (it + steps_per_dispatch - 1,
+                                        _fc_from_tail(fused, tail, ntheta)))
+                covf.flush()
+            it += steps_per_dispatch
+            best = float((-values).min())
+            if prev_best - best < ftol * (abs(prev_best) + 1e-12):
+                stall += 1  # noise-tolerant: several stalled dispatches in a row
+                if stall >= stall_patience:
+                    break
+            else:
+                stall = 0
+            prev_best = min(prev_best, best)
+        if it:
+            checkpoint(it - steps_per_dispatch)
+    finally:
+        f_log.write("optimization finished after %.fs\n" % (time.time() - t0))
+        f_log.close()
+        if covf is not None:
+            covf.close()
+        with open(os.path.join(d, "finished"), "w") as f:
+            f.write("")
+    return theta_host()
+
+
+def do_optimization_fused(d, fused, X0, maxsec: float = 3600, max_iters: int = 400,
+                          steps_per_dispatch: int = 20, ftol: float = 1e-6,
+                          resume: bool = False, ckpt_every_sec: float = 10.0,
+                          stall_patience: int = 4):
+    """The task=x driver: :func:`do_optimization_fused_theta` over a theta
+    that is X alone (no covs.txt).  Returns the final flat X."""
+    if fused.task != "x":
+        raise ValueError(f"task {fused.task!r} packs more than X: use do_optimization_fused_theta")
+    return do_optimization_fused_theta(
+        d, fused, np.asarray(X0).reshape(-1), maxsec=maxsec, max_iters=max_iters,
+        steps_per_dispatch=steps_per_dispatch, ftol=ftol, resume=resume,
+        ckpt_every_sec=ckpt_every_sec, stall_patience=stall_patience)
+
+
+def do_optimization_multistart(*args, **kwargs):
+    raise NotImplementedError("the multistart drivers are not ported yet (ROADMAP, still to "
+                              "port: multistart)")
+
+
+do_optimization_multistart_theta = do_optimization_multistart
+
+
+def refine_f64(*args, **kwargs):
+    raise NotImplementedError("the float64 refinement phase is not ported yet (ROADMAP, still "
+                              "to port: refine_f64)")

@@ -28,3 +28,38 @@ def cov_from_numpy(wfn_params, dfn_params, dfn_str: str = "euclidean", wfn_str: 
     return GPCov.create(np.asarray(wfn_params, dtype=np.float64),
                         np.asarray(dfn_params, dtype=np.float64), dfn_str, wfn_str,
                         device=device, dtype=dtype)
+
+
+def sampled_data_from_numpy(SX, SY, Xtest, Ytest, X_obs, cov_row, lscale, obs_std):
+    """A :class:`~gprf_torch.data.sampled.SampledData` from another
+    package's dataset: its arrays and its full cov row [nv, sv, l1, l2]."""
+    from gprf_torch.data.sampled import SampledData
+
+    return SampledData.from_arrays(SX, SY, Xtest, Ytest, X_obs, cov_row, lscale, obs_std)
+
+
+def layout_from_numpy(assignment, mask, sizes, edges):
+    """A :class:`~gprf_torch.partition.layout.BlockLayout` from the arrays
+    of another package's layout, at the same padded width."""
+    from gprf_torch.partition.layout import BlockLayout
+
+    assignment, sizes = np.asarray(assignment), np.asarray(sizes)
+    if not np.array_equal(np.asarray(mask).sum(axis=1), sizes):
+        raise ValueError("mask and sizes disagree")
+    blocks = [assignment[b, :k] for b, k in enumerate(sizes)]
+    n = int(sum(sizes))
+    return BlockLayout.from_blocks(blocks, n=n, edges=np.asarray(edges).reshape(-1, 2),
+                                   pad_to=assignment.shape[1])
+
+
+def carry_from_numpy(carry, *, device: torch.device | str):
+    """An L-BFGS carry (:mod:`gprf_torch.optim.lbfgs`) from a dict of NumPy
+    arrays under the same keys, each at its own dtype (``head`` as int64)."""
+    out = {k: torch.tensor(np.asarray(v), device=device) for k, v in carry.items()}
+    out["head"] = out["head"].long()
+    return out
+
+
+def carry_to_numpy(carry):
+    """The carry as a dict of NumPy arrays, for another package or a file."""
+    return {k: v.detach().cpu().numpy() for k, v in carry.items()}

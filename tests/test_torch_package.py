@@ -1,5 +1,6 @@
 """gprf_torch as a package: it imports without JAX, pins float32 products to
-full precision, and chip_smoke.py refuses to run without a CUDA device."""
+full precision, and chip_smoke.py, the CLI and the bench refuse to run
+without a CUDA device unless the CPU is asked for."""
 
 import importlib.util
 import os
@@ -9,6 +10,7 @@ import shutil
 import subprocess
 import sys
 
+import pytest
 import torch
 
 import gprf_torch
@@ -20,6 +22,13 @@ SMOKE = os.path.join(REPO, "chip_smoke.py")
 
 def _modules():
     return sorted(m.name for m in pkgutil.walk_packages(gprf_torch.__path__, "gprf_torch."))
+
+
+def test_the_import_check_covers_the_entry_points():
+    assert {"gprf_torch.cli.gprfopt", "gprf_torch.bench", "gprf_torch.data.sampled",
+            "gprf_torch.data.synthetic", "gprf_torch.analysis.results",
+            "gprf_torch.model.gprf", "gprf_torch.optim.driver",
+            "gprf_torch.partition.layout"} <= set(_modules())
 
 
 def test_imports_without_jax_optax_or_gprf_tpu():
@@ -51,7 +60,7 @@ def test_sources_never_import_jax():
     for path in files:
         with open(path) as f:
             assert not pat.search(f.read()), path
-    assert len(files) >= 15
+    assert len(files) >= 30
 
 
 def test_float32_products_run_at_full_precision():
@@ -89,3 +98,51 @@ def test_kernel_build_is_lazy_and_keyed_on_the_sources():
             "gprf_cholesky", "gprf_chol_inv_ctas_per_sm", "gprf_tri_inv_ctas_per_sm",
             "gprf_mvn_ctas_per_sm", "gprf_mvn_inv_ctas_per_sm"} == set(_build.SIGNATURES)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal where there is no GPU")
+def test_cli_and_bench_default_to_the_card_and_raise_without_one(tmp_path, monkeypatch):
+    """Nothing carries on on the CPU unless ``--device cpu`` asks for it."""
+    from gprf_torch import bench
+    from gprf_torch.cli import gprfopt
+
+    monkeypatch.setenv("GPRF_EXPERIMENTS", str(tmp_path))
+    argv = ["--ntrain", "100", "--ntest", "10", "--nblocks", "4", "--lscale", "0.2"]
+    assert gprfopt.build_parser().parse_args(argv).device == "cuda"
+    for engine in ("host", "device"):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            gprfopt.main(argv + ["--engine", engine])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        gprfopt.do_run(str(tmp_path), 0.2, 110, 100, 4, 3)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        bench.main([])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        bench.run("cuda")
+    assert os.listdir(tmp_path) == []  # refused before anything was sampled or written
+
+
+def test_the_bench_does_not_load_the_command_line_layer():
+    """The measurement layer stands below the command line: importing it
+    loads neither the CLI nor the data, analysis and scipy-driver modules."""
+    code = ("import sys, gprf_torch.bench\n"
+            "layers = ('gprf_torch.cli', 'gprf_torch.data', 'gprf_torch.analysis',"
+            " 'gprf_torch.optim.driver')\n"
+            "bad = [m for m in sys.modules if m.startswith(layers)]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+
+
+def test_model_classes_take_their_device_explicitly():
+    """GPRF and build_gprf have no default device to fall back to."""
+    import inspect
+
+    from gprf_torch.data.sampled import SampledData
+    from gprf_torch.model.gprf import GPRF
+
+    for f in (GPRF.__init__, SampledData.build_gprf):
+        params = inspect.signature(f).parameters
+        for name in ("device", "dtype"):
+            assert params[name].kind is inspect.Parameter.KEYWORD_ONLY
+            assert params[name].default is inspect.Parameter.empty
