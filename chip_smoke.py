@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of gprf_torch on one card: the kernels, the flagship
-fused-Schur L-BFGS path on each of the objective's three routes, and the
-synthetic experiment end to end through its command line.
+fused-Schur L-BFGS path on each of the objective's three routes, multistart,
+and the synthetic and seismic experiments end to end through their command
+lines.
 
     python3 chip_smoke.py        (from the repository root; needs one CUDA device)
 
@@ -59,6 +60,26 @@ Phases, each of which raises on failure (exit code 1, no result line):
 8. resume  - a device-engine run stopped after two dispatches and resumed
              from optimizer_state.npz: no step index twice in log.txt.
 9. bench   - ``gprf_torch.bench``'s record, logged.
+10. multistart - the bench's problem from 3 starts: the replica-batched
+             runner (the replicas folded into one kernel batch) against the
+             single-start runner from each start over 4 steps, values within
+             the routes' tolerance.
+11. seismic - ``gprf_torch.cli.run_seismic.main`` on the seismic command
+             (the 12,000-event catalog sampled into a temporary data_dir,
+             64 PD-tree blocks, 108 edges at threshold 0.6, m = 192, dy =
+             50, Matern-3/2 over the great-circle distance, task xcov)
+             with ``--engine device --multistart 4``, 100 iterations,
+             counters reset before and read after: the files with
+             multistart.txt, a rising objective, a falling mean location
+             error, K1-K3 launched and K4, K5 not, and B, E and m as the
+             engine reports them.  Seconds of sampling, fitting and
+             analysis.  Then K1, K2 and K3 against their twins on the
+             inputs the seismic loss gives them at R = 1 and R = 4
+             ([64|256,192,192], [108|432,192,192] + [.,192,50]), the
+             device-busy ms of one loss+grad at each, and the three routes
+             of FusedSeismicGPRF against their twins and each other.
+12. seismic_host - the same data with ``--engine host`` for a few seconds:
+             the files and a rising objective.
 
 Output: a JSON line describing each kernel (its launches on the main path,
 its max abs error against its twin, its ms, its twin's, its library call's
@@ -90,6 +111,21 @@ CLI_FLAGS = ["--ntrain", "10000", "--ntest", "500", "--nblocks", "100", "--lscal
 CLI_ITERS = 100
 CLI_EDGES = 342  # axis and diagonal neighbors of the 10 x 10 grid
 HOST_SECONDS = 5
+# The seismic experiment: the command of README.md:47 and docs/RESULTS.md
+# (Seismic), on its recommended device engine with 4 replicas
+SEISMIC_FLAGS = ["--npts=-1", "--obs_std=20", "--threshold=0.6", "--rpc_blocksize=210",
+                 "--task=xcov"]
+SEISMIC_ITERS = 100
+SEISMIC_REPLICAS = 4
+SEISMIC_R = ("R1", f"R{SEISMIC_REPLICAS}")  # the replica counts its kernels are held at
+# its partition at the observed locations (docs/RESULTS.md:247)
+SEISMIC_SHAPE = {"blocks": 64, "edges": 108, "m": 192}
+# the multistart check: replicas and steps on the bench's problem.  Two float32
+# runs whose reductions reassociate part by ~1e-7 at the first steps, and this
+# ill-conditioned problem (Y iid noise) grows that ~3x a step, past 1e-5 at
+# step 5-6 (scripts/torch_multistart_divergence.py); a single start run twice
+# is bitwise equal.
+MULTISTART_REPLICAS, MULTISTART_STEPS = 3, 4
 
 # route -> (FusedGridGPRF options, L-BFGS dispatches, kernels its run must
 # launch, kernels it must not launch at m = 136)
@@ -527,15 +563,15 @@ def agreement(vg, vg_ref):
     return loss_rel, float(g @ g_ref / (g.norm() * g_ref.norm()))
 
 
-def check_routes(fused, x0, torch):
+def check_routes(fused, x0, torch, m=M0, what="route"):
     """Per route: one loss+grad on the kernels against the same route on the
     twins, and against the default route on the kernels; then ms/eval of
-    every route on both, in turns."""
+    every route on both, in turns, at the capacity m."""
     from gprf_torch.bench import device_busy
     from gprf_torch.ops import mvn
     from gprf_torch.optim.lbfgs import value_and_grad
 
-    fused.m = M0
+    fused.m = m
     losses, evals, report = [], {}, {}
     for route in ROUTES:
         for ops in (mvn.KERNEL_OPS, mvn.PLAIN_OPS):
@@ -546,23 +582,24 @@ def check_routes(fused, x0, torch):
         if route != "default":
             report[route]["vs_default"] = agreement(evals[route, True], evals["default", True])
         for against, (loss_rel, cosine) in report[route].items():
-            log(f"route {route}, kernels {against}: loss {float(evals[route, True][0]):.6f}, "
+            log(f"{what} {route}, kernels {against}: loss {float(evals[route, True][0]):.6f}, "
                 f"rel {loss_rel:.3e}, gradient cosine {cosine:.8f}")
             if not (loss_rel <= RTOL_LOSS and cosine > MIN_GRAD_COSINE):
-                raise AssertionError(f"route {route} disagrees, {against}: loss rel "
+                raise AssertionError(f"{what} {route} disagrees, {against}: loss rel "
                                      f"{loss_rel:.3e}, cosine {cosine:.8f}")
     ms = eval_ms_in_turns(losses, x0, torch)
     for i, route in enumerate(ROUTES):
         report[route].update(ms_per_eval=ms[2 * i], plain_ms_per_eval=ms[2 * i + 1])
-        log(f"route {route} ms/eval (loss + grad, median of 20 in turns): kernels "
+        log(f"{what} {route} ms/eval (loss + grad, median of 20 in turns): kernels "
             f"{ms[2 * i]:.3f}, twins {ms[2 * i + 1]:.3f}")
     for i, route in enumerate(ROUTES):
         (busy, n), (plain_busy, plain_n) = (device_busy(losses[2 * i + t], x0)
                                             for t in (0, 1))
         report[route].update(device_busy_ms=busy, device_launches=n,
                              plain_device_busy_ms=plain_busy, plain_device_launches=plain_n)
-        log(f"route {route} device busy per loss+grad (profiler, kernel events): kernels "
+        log(f"{what} {route} device busy per loss+grad (profiler, kernel events): kernels "
             f"{busy:.3f} ms ({n:.0f} launches), twins {plain_busy:.3f} ms ({plain_n:.0f})")
+    use_route(fused, "default", mvn.KERNEL_OPS)
     return report
 
 
@@ -803,6 +840,162 @@ def run_resume(base, data, torch):
     return dict(rows_before=len(before), rows_after=len(steps))
 
 
+def check_multistart(fused, x_flat, torch):
+    """Phase 10: the bench's problem from MULTISTART_REPLICAS starts (the
+    observed X and perturbations at the observation prior's scale), the
+    replica-batched runner against the single-start runner from each start."""
+    from gprf_torch.ops import mvn
+    from gprf_torch.optim.lbfgs import make_multistart_runner, make_scan_lbfgs_runner
+
+    fused.m = M0
+    use_route(fused, "default", mvn.KERNEL_OPS)
+    rng = np.random.default_rng(2)
+    x0s = np.stack([x_flat] + [x_flat + rng.standard_normal(x_flat.shape) * OBS_STD
+                               for _ in range(MULTISTART_REPLICAS - 1)])
+    x0s = torch.as_tensor(x0s, dtype=fused.dtype, device=fused.device)
+    init, run = make_multistart_runner(fused.loss_fn(), MULTISTART_STEPS)
+    mvn.reset_launch_counts()
+    _, (values, _, _) = run(init(x0s))
+    torch.cuda.synchronize()
+    launches = dict(mvn.launch_counts)
+    init1, run1 = make_scan_lbfgs_runner(fused.loss_fn(), MULTISTART_STEPS)
+    rels = []
+    for r in range(MULTISTART_REPLICAS):
+        _, (single, _, _) = run1(init1(x0s[r]))
+        ref = single.double()
+        rels.append(float((values[r].double() - ref).abs().max() / ref.abs().max()))
+    log(f"multistart, bench problem, R={MULTISTART_REPLICAS}, {MULTISTART_STEPS} steps: "
+        f"max rel value difference to the single starts per replica {rels}; launches of the "
+        f"batched run {launches} (K1 on [{MULTISTART_REPLICAS * NBLOCKS},{M0},{M0}])")
+    if not max(rels) <= RTOL_LOSS or launches["chol_inv"] != MULTISTART_STEPS + 1:
+        raise AssertionError(f"multistart disagrees with the single starts: rel {rels}, "
+                             f"launches {launches}")
+    return dict(replicas=MULTISTART_REPLICAS, steps=MULTISTART_STEPS, max_rel_value_diff=rels,
+                launches=launches)
+
+
+def read_seismic_results(d):
+    """(first row's mean km error, last row's, the true-X objective) of a
+    seismic run directory's results.txt."""
+    with open(os.path.join(d, "results.txt")) as f:
+        rows = f.read().splitlines()
+    if not rows[-1].startswith("true X ll"):
+        raise AssertionError(f"{d}/results.txt ends with {rows[-1]!r}")
+    return float(rows[0].split()[4]), float(rows[-2].split()[4]), float(rows[-1].split()[-1])
+
+
+def run_seismic_device(base, cases, torch):
+    """Phase 11: the seismic command on the device engine with replicas."""
+    from gprf_torch.bench import device_busy, splits_at
+    from gprf_torch.cli import run_seismic
+    from gprf_torch.ops import mvn
+
+    data = os.path.join(base, "data")
+    os.makedirs(data)
+    os.environ["SEISMIC_EXPERIMENTS"] = os.path.join(base, "device")
+    argv = SEISMIC_FLAGS + ["--data_dir", data, "--engine", "device", "--multistart",
+                            str(SEISMIC_REPLICAS), "--max_iters", str(SEISMIC_ITERS)]
+    args = run_seismic.build_parser().parse_args(argv)
+    d = run_seismic.seismic_exp_dir(args)
+    torch.cuda.synchronize()
+    mvn.reset_launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        info = run_seismic.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(mvn.launch_counts)
+    files = sorted(os.listdir(d))
+    steps, values = read_log(d)
+    wanted = ["log.txt", "multistart.txt", "covs.txt", "results.txt", "finished",
+              "step_%05d_X.npy" % steps[-1], "step_%05d_cov.npy" % steps[-1]]
+    if [f for f in wanted if f not in files]:
+        raise AssertionError(f"seismic run left {files}; want {wanted}")
+    with open(os.path.join(d, "multistart.txt")) as f:
+        columns = {len(line.split()) for line in f}
+    mad_first, mad_last, true_ll = read_seismic_results(d)
+    shape = {k: info[k] for k in SEISMIC_SHAPE}
+    log(f"seismic (device engine, {SEISMIC_REPLICAS} replicas): partition {shape}, capacity m "
+        f"{info['m']} -> {info['m_end']} (splitting there: {splits_at(info['m_end'], DY) or 'none'})"
+        f"; {len(steps)} iterations; winner's objective {values[0]:.2f} -> {values[-1]:.2f}, at "
+        f"the true X {true_ll:.2f}; mean location error {mad_first:.4f} -> {mad_last:.4f} km; "
+        f"seconds: sampling {info['sample_s']:.2f} (the catalog and the 12,000-point sparse "
+        f"prior draw, on the host), fitting {info['fit_s']:.2f}, analysis "
+        f"{info['analyze_s']:.2f}; launches {launches}")
+    if shape != SEISMIC_SHAPE:
+        raise AssertionError(f"the seismic partition is {shape}; want {SEISMIC_SHAPE}")
+    if columns != {2 + SEISMIC_REPLICAS}:
+        raise AssertionError(f"multistart.txt rows have {columns} columns")
+    if not (list(steps) == list(range(len(steps))) and values[-1] > values[0]
+            and mad_last < mad_first and np.isfinite(true_ll)):
+        raise AssertionError(f"seismic run: steps {steps[0]}..{steps[-1]}, objective "
+                             f"{values[0]} -> {values[-1]}, mean error {mad_first} -> {mad_last}")
+    check_launches("the seismic run", launches, ("chol_inv", "mvn_ll", "tri_inv"),
+                   ("mvn_ll_inv", "cholesky"))
+
+    # the engine the run used, rebuilt on the cached data: K1-K3 against
+    # their twins on the seismic loss's inputs at one replica and at all
+    p = run_seismic.build_problem(args, device="cuda")
+    fused = run_seismic.build_engine(args, p, device="cuda")
+    theta0 = fused.theta0(p["means"], p["C0"])
+    thetas = run_seismic.multistart_thetas(theta0, args.task, p["means"].size,
+                                           SEISMIC_REPLICAS, args.seed)
+    per_r = {}
+    for R in (1, SEISMIC_REPLICAS):
+        x = torch.as_tensor(thetas[0] if R == 1 else thetas, dtype=torch.float32, device="cuda")
+        kernels = check_path_kernels(f"seismic path, R={R}", recorded_inputs(
+            fused, lambda: fused.loss_fn()(x)), cases, torch)
+        want = {"chol_inv": [R * info["blocks"], info["m"], info["m"]],
+                "mvn_ll": [R * info["edges"], info["m"], info["m"], DY]}
+        if any(kernels[k]["shape"] != v for k, v in want.items()):
+            raise AssertionError(f"seismic kernels were held at {kernels}")
+        loss = fused.loss_fn()
+        busy, n_launch = device_busy(loss, x)
+        (eval_ms,) = eval_ms_in_turns([loss], x, torch)
+        log(f"seismic shapes, R={R}: one loss+grad: device busy {busy:.3f} ms ({n_launch:.0f} "
+            f"launches), host clock {eval_ms:.3f} ms (median of 20)")
+        per_r[f"R{R}"] = dict(kernels=kernels, device_busy_ms=busy, device_launches=n_launch,
+                              eval_ms=eval_ms)
+    routes = check_routes(fused, torch.as_tensor(theta0, dtype=torch.float32, device="cuda"),
+                          torch, m=info["m"], what="seismic route")
+    return dict(info, iterations=len(steps), objective=[float(values[0]), float(values[-1])],
+                true_x_objective=true_ll, mean_km=[mad_first, mad_last],
+                ms_per_iteration=info["fit_s"] / len(steps) * 1e3, launches=launches,
+                dir_files=len(files), routes=routes, **per_r), data
+
+
+def run_seismic_host(base, data, torch):
+    """Phase 12: the seismic command on the host engine, on the same data."""
+    from gprf_torch.cli import run_seismic
+    from gprf_torch.ops import mvn
+
+    os.environ["SEISMIC_EXPERIMENTS"] = os.path.join(base, "host")
+    argv = SEISMIC_FLAGS + ["--data_dir", data, "--engine", "host", "--maxsec",
+                            str(HOST_SECONDS)]
+    d = run_seismic.seismic_exp_dir(run_seismic.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    mvn.reset_launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        info = run_seismic.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(mvn.launch_counts)
+    files = sorted(os.listdir(d))
+    steps, values = read_log(d)
+    mad_first, mad_last, _ = read_seismic_results(d)
+    ms = info["fit_s"] / len(steps) * 1e3
+    log(f"seismic host engine (scipy over GPRF.llgrad, {HOST_SECONDS} s): {len(steps)} "
+        f"evaluations, {ms:.2f} ms each with re-blocking, upload and checkpoint; objective "
+        f"{values[0]:.2f} -> {values.max():.2f}; mean location error {mad_first:.4f} -> "
+        f"{mad_last:.4f} km; launches {launches}")
+    wanted = ["log.txt", "covs.txt", "results.txt", "finished", "step_00000_X.npy"]
+    if [f for f in wanted if f not in files] or not (len(steps) >= 3
+                                                      and values.max() > values[0]):
+        raise AssertionError(f"seismic host engine: files {files}, objective {values}")
+    check_launches("the seismic host run", launches, ("chol_inv", "mvn_ll", "tri_inv"),
+                   ("mvn_ll_inv", "cholesky"))
+    return dict(evaluations=len(steps), ms_per_evaluation=ms,
+                objective=[float(values[0]), float(values.max())], launches=launches,
+                seconds={k: info[k] for k in ("sample_s", "fit_s", "analyze_s")})
+
+
 def main():
     import torch
 
@@ -836,33 +1029,43 @@ def main():
         routes[route].update(run_lbfgs(fused, x0, route, torch))
     for name, route in KERNEL_ROUTE.items():
         report[name]["launches"] = routes[route]["launches"][name]
+    multistart = check_multistart(fused, x_flat, torch)
     bench_edges = int(fused.edges.shape[0])
     del fused
 
     from gprf_torch import bench
 
-    experiments = os.environ.get("GPRF_EXPERIMENTS")
+    experiments = {k: os.environ.get(k) for k in ("GPRF_EXPERIMENTS", "SEISMIC_EXPERIMENTS")}
     try:
         with tempfile.TemporaryDirectory() as base, tempfile.TemporaryDirectory() as host_base:
             cli, data = run_cli(base, cases, torch)
             host = run_host(host_base, data, cases, torch)
             resume = run_resume(host_base, data, torch)
-    finally:  # the phases pointed it at directories that are gone now
-        if experiments is None:
-            os.environ.pop("GPRF_EXPERIMENTS", None)
-        else:
-            os.environ["GPRF_EXPERIMENTS"] = experiments
+        with tempfile.TemporaryDirectory() as base:
+            seismic, seismic_data = run_seismic_device(base, cases, torch)
+            seismic_host = run_seismic_host(base, seismic_data, torch)
+    finally:  # the phases pointed them at directories that are gone now
+        for k, v in experiments.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     for name in report:
         report[name]["cli_launches"] = cli["launches"][name]
-        if name in cli["kernels"]:  # the same kernel at the command line's shapes
+        report[name]["seismic_launches"] = seismic["launches"][name]
+        if name in cli["kernels"]:  # the same kernel at the command line's and seismic shapes
             report[name]["cli"] = cli["kernels"][name]
+            report[name]["seismic"] = {r: seismic[r]["kernels"][name] for r in SEISMIC_R}
+    for r in SEISMIC_R:
+        del seismic[r]["kernels"]
     bench_record = bench.run(dev, log=log)
     log(f"bench: {json.dumps(bench_record)}")
 
     print(json.dumps({
         "kernels": list(report.values()),
         "slice": {"n": N, "blocks": NBLOCKS, "m": M0, "edges": bench_edges, "dy": DY, "routes": routes,
-                  "cli": cli, "host": host, "resume": resume, "bench": bench_record},
+                  "cli": cli, "host": host, "resume": resume, "bench": bench_record,
+                  "multistart": multistart, "seismic": seismic, "seismic_host": seismic_host},
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

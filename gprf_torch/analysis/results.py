@@ -133,5 +133,18 @@ def max_history(values):
 
 
 def compare_seismic_runs(d1, d2, data_dir="."):
-    raise NotImplementedError("seismic run comparison is not ported yet (ROADMAP, still to "
-                              "port: the seismic experiment)")
+    """(mean, median) km distance between the final inferred locations of
+    two seismic runs: the last ``step_*_X.npy`` of each run directory,
+    point by point."""
+    from gprf_torch.data.seismic import mad
+
+    def last_X(d):
+        fnames = sorted(f for f in os.listdir(d) if f.startswith("step") and f.endswith("_X.npy"))
+        if not fnames:
+            raise FileNotFoundError(f"no step checkpoints in {d}")
+        return np.load(os.path.join(d, fnames[-1]))
+
+    X1, X2 = last_X(d1), last_X(d2)
+    if len(X1) != len(X2):
+        raise ValueError("runs have different point counts")
+    return mad(X1, X2)

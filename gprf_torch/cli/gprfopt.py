@@ -8,7 +8,8 @@ encodes the configuration and doubles as the cache key) and ``do_run``
 orchestration, plus ``--device`` (default ``cuda``; without a CUDA device
 the default raises, and only ``--device cpu`` runs on the CPU).  Served:
 both engines, tasks x / cov / xcov, grid partitions, ``--init_x``,
-``--init_true``, ``--init_seed``, ``--analyze``.  What is not ported yet is
+``--init_true``, ``--init_seed``, ``--analyze``, ``--multistart`` (device
+engine; the host engine ignores it, as the reference's does).  What is not ported yet is
 refused with a message (:func:`refuse_unported`).
 """
 
@@ -27,19 +28,20 @@ from gprf_torch.data.sampled import exp_base_dir, sample_data
 from gprf_torch.data.synthetic import sampler_suffix
 from gprf_torch.model.fused import FusedSyntheticGPRF
 from gprf_torch.optim.driver import do_optimization
-from gprf_torch.optim.lbfgs import do_optimization_fused, do_optimization_fused_theta
+from gprf_torch.optim.lbfgs import (do_optimization_fused, do_optimization_fused_theta,
+                                    do_optimization_multistart,
+                                    do_optimization_multistart_theta)
 from gprf_torch.partition.grid import grid_centers
 from gprf_torch.utils.device import resolve_device
 from gprf_torch.utils.io import mkdir_p
 
 
-def refuse_unported(rpc_blocksize=-1, gplvm_type="gprf", multistart=1, refine_iters=0,
-                    analyze_full=False, schur_precision=""):
+def refuse_unported(rpc_blocksize=-1, gplvm_type="gprf", refine_iters=0, analyze_full=False,
+                    schur_precision=""):
     """Raise for an option of the reference that the port does not serve."""
     pending = [
         (rpc_blocksize != -1, "--rpc_blocksize: RPC partitions (partition/rpc.py)"),
         (gplvm_type != "gprf", "--gplvm_type other than gprf: the GPLVM baselines (model/sgplvm.py)"),
-        (multistart > 1, "--multistart > 1: the multistart drivers"),
         (refine_iters > 0, "--refine_iters > 0: the float64 refinement phase (refine_f64)"),
         (analyze_full, "--analyze_full: predictive metrics (model/predict.py)"),
     ]
@@ -63,7 +65,7 @@ def do_run(d, lscale, n, ntrain, nblocks, yd, seed=0, method="l-bfgs-b", obs_std
     where and at which width the objective runs; ``mvn_inv`` and
     ``unary_doubling`` pick a route of the device engine's objective.
     Returns the seconds spent sampling, fitting and analyzing."""
-    refuse_unported(rpc_blocksize, gplvm_type, multistart, refine_iters, analyze_full)
+    refuse_unported(rpc_blocksize, gplvm_type, refine_iters, analyze_full)
     device = resolve_device(device)
     centers = grid_centers(nblocks)
     print("gprf with %d blocks" % len(centers))
@@ -127,7 +129,29 @@ def do_run(d, lscale, n, ntrain, nblocks, yd, seed=0, method="l-bfgs-b", obs_std
                 max_iters = 400 if task == "x" else 600
             loop = dict(maxsec=maxsec, max_iters=max_iters, ftol=ftol,
                         stall_patience=stall_patience)
-            if task == "x":
+            if multistart > 1:
+                ms_rng = np.random.default_rng(seed + 1000)
+                if task == "x":
+                    # replica 0 is the standard start, the others
+                    # perturbations of it at the observation prior's scale
+                    X0s = np.stack([X0] + [X0 + ms_rng.standard_normal(X0.shape) * data.obs_std
+                                           for _ in range(multistart - 1)])
+                    _, _, final_v = do_optimization_multistart(d, fused, X0s, **loop)
+                else:
+                    theta0 = fused.theta0()
+                    thetas = [theta0]
+                    for _ in range(multistart - 1):
+                        t = theta0.copy()
+                        if task == "xcov":  # the X segment at the prior's scale
+                            t[:X0.size] += ms_rng.standard_normal(X0.size) * data.obs_std
+                        t[len(t) - C0.size:] += (ms_rng.standard_normal(C0.size) * 0.3
+                                                 * FusedSyntheticGPRF.COV_SCALE)
+                        thetas.append(t)
+                    _, _, final_v = do_optimization_multistart_theta(d, fused, np.stack(thetas),
+                                                                     **loop)
+                print("multistart: best replica %d of %d (final objectives %s)"
+                      % (int(np.argmin(final_v)), multistart, final_v))
+            elif task == "x":
                 do_optimization_fused(d, fused, X0, **loop)
             else:
                 do_optimization_fused_theta(d, fused, fused.theta0(), **loop)
@@ -222,7 +246,7 @@ def build_parser():
     add("--refine_iters", dest="refine_iters", default=0, type=int, help="device engine: float64 refinement iterations after the float32 loop (not ported yet)")
     add("--ftol", dest="ftol", default=1e-6, type=float, help="device engine: relative per-dispatch improvement threshold for stall detection")
     add("--stall_patience", dest="stall_patience", default=4, type=int, help="device engine: consecutive stalled dispatches before stopping")
-    add("--multistart", dest="multistart", default=1, type=int, help="device engine: number of replicas optimized at once (not ported yet)")
+    add("--multistart", dest="multistart", default=1, type=int, help="device engine: optimize this many replicas at once and keep the best final objective")
     add("--schur_precision", dest="schur_precision", default="", choices=["", "highest", "high"], help="forward Schur-algebra product precision; only 'highest' (full float32) exists here, 'high' is refused")
     add("--device", dest="device", default="cuda", type=str, help="torch device of the objective; 'cuda' (default) raises without a GPU, 'cpu' runs on the CPU")
     return parser
@@ -230,8 +254,8 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_unported(args.rpc_blocksize, args.gplvm_type, args.multistart, args.refine_iters,
-                    args.analyze_full, args.schur_precision)
+    refuse_unported(args.rpc_blocksize, args.gplvm_type, args.refine_iters, args.analyze_full,
+                    args.schur_precision)
     device = resolve_device(args.device)
     mkdir_p(exp_base_dir())
     d = exp_dir(args)

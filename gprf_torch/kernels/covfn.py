@@ -1,5 +1,6 @@
 """Covariance profiles over scaled distances (mirror of
-``gprf_tpu/kernels/covfn.py``).  Inputs may carry leading batch dimensions."""
+``gprf_tpu/kernels/covfn.py``).  Inputs and hyperparameters may carry
+leading batch dimensions (:mod:`gprf_torch.kernels.distances`)."""
 
 from __future__ import annotations
 
@@ -13,8 +14,9 @@ _SQRT3 = 1.7320508075688772
 
 def _profile(wfn_str: str, r2, wfn_params):
     """Profile of the scaled squared distance.  SE works in r^2 directly
-    (smooth through coincident points); Matern-3/2 goes through safe_sqrt."""
-    sv = wfn_params[0]
+    (smooth through coincident points); Matern-3/2 goes through safe_sqrt.
+    ``wfn_params [..., 1]`` broadcasts against r2."""
+    sv = wfn_params[..., 0:1]
     if wfn_str == "se":
         return sv * torch.exp(-r2)
     if wfn_str == "matern32":

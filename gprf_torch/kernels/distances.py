@@ -1,17 +1,21 @@
 """Pairwise scaled distances with a safe gradient at coincident points.
 
 Mirror of ``gprf_tpu/kernels/distances.py``.  Every function takes optional
-leading batch dimensions: ``X1 [..., n1, dx]``, ``X2 [..., n2, dx]``.
+leading batch dimensions: ``X1 [..., n1, dx]``, ``X2 [..., n2, dx]``, and
+lengthscales ``[..., k]`` that broadcast against X1 (one set of
+hyperparameters per replica of a batch).
 
 Gradient policy at coincident points: :func:`safe_sqrt` has a zero
 derivative at a (numerically) zero radicand, so d r / d x -> 0 as x' -> x
-instead of the undefined 1/r limit.
+instead of the undefined 1/r limit; the great-circle angle's derivative is
+zero at coincident and antipodal points (:class:`_CentralAngle`).
 """
 
 from __future__ import annotations
 
 import torch
 
+AVG_EARTH_RADIUS_KM = 6371.0
 _SAFE_EPS = 1e-20
 _QUADRATIC_EXPANSION_MIN_DIM = 16
 
@@ -54,8 +58,47 @@ def sq_euclidean(X1, X2, lscales):
     return torch.clamp_min(r2, 0.0)
 
 
+class _CentralAngle(torch.autograd.Function):
+    """2 asin(sqrt(hav)) with a guarded derivative: 1 / sqrt(hav (1 - hav))
+    is singular at coincident (hav = 0) and antipodal (hav = 1) points, and
+    both ends take a zero derivative."""
+
+    @staticmethod
+    def forward(ctx, h):
+        ctx.save_for_backward(h)
+        return 2.0 * torch.asin(torch.sqrt(torch.clamp(h, 0.0, 1.0)))
+
+    @staticmethod
+    def backward(ctx, g):
+        (h,) = ctx.saved_tensors
+        safe = (h > torch.finfo(h.dtype).tiny) & (h < 1.0 - 1e-7)
+        denom = torch.sqrt(torch.where(safe, h * (1.0 - h), torch.ones_like(h)))
+        return g * torch.where(safe, 1.0 / denom, torch.zeros_like(h))
+
+
+def _haversine_km(lonlat1, lonlat2):
+    """Great-circle surface distance matrix [..., n1, n2] in km between two
+    (lon, lat) degree arrays."""
+    r1 = torch.deg2rad(lonlat1)
+    r2 = torch.deg2rad(lonlat2)
+    lon1, lat1 = r1[..., :, None, 0], r1[..., :, None, 1]
+    lon2, lat2 = r2[..., None, :, 0], r2[..., None, :, 1]
+    sin_dlat = torch.sin((lat1 - lat2) / 2.0)
+    sin_dlon = torch.sin((lon1 - lon2) / 2.0)
+    hav = sin_dlat**2 + torch.cos(lat1) * torch.cos(lat2) * sin_dlon**2
+    return _CentralAngle.apply(hav) * AVG_EARTH_RADIUS_KM
+
+
 def sq_lld(X1, X2, lscales):
-    raise NotImplementedError("seismic slice")
+    """Scaled squared lon/lat/depth distance matrix,
+
+    r2[..., a, b] = (d_km(X1[a], X2[b]) / l_h)^2 + ((depth_a - depth_b) / l_z)^2
+
+    with ``lscales = [l_h, l_z]`` in km; X's columns are (lon_deg, lat_deg,
+    depth_km)."""
+    d_surf = _haversine_km(X1[..., :2], X2[..., :2])
+    d_depth = X1[..., :, None, 2] - X2[..., None, :, 2]
+    return (d_surf / lscales[..., 0:1]) ** 2 + (d_depth / lscales[..., 1:2]) ** 2
 
 
 def scaled_sq_distance(dfn_str: str, X1, X2, dfn_params):

@@ -23,8 +23,8 @@ class GPCov:
     """Stationary GP covariance ``k(x, x') = wfn(dfn(x, x'))``.
 
     ``dfn_str``: ``"euclidean"``, per-dimension scaled euclidean distance
-    with one lengthscale per input dimension (``"lld"``, the seismic
-    great-circle distance, is not ported yet).  ``wfn_str``: ``"se"``,
+    with one lengthscale per input dimension, or ``"lld"``, the seismic
+    great-circle surface distance with depth, lengthscales [l_h, l_z] km.  ``wfn_str``: ``"se"``,
     ``sv * exp(-r^2)``, or ``"matern32"``, ``sv (1 + sqrt(3) r) exp(-sqrt(3) r)``.
     """
 

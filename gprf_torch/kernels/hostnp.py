@@ -1,5 +1,5 @@
 """Float64 NumPy kernel matrices on the host (a copy of
-``gprf_tpu/kernels/hostnp.py``, euclidean distances only).
+``gprf_tpu/kernels/hostnp.py``).
 
 Data generation and analysis build kernel matrices once, in float64,
 whatever device and dtype the objective runs at; a parity test pins these
@@ -12,6 +12,7 @@ import numpy as np
 
 from gprf_torch.kernels.gpcov import GPCov
 
+AVG_EARTH_RADIUS_KM = 6371.0
 _SQRT3 = 1.7320508075688772
 
 
@@ -33,12 +34,25 @@ def _sq_euclidean_np(X1, X2, lscales):
     return r2
 
 
+def _sq_lld_np(X1, X2, lscales):
+    r1 = np.radians(X1[:, :2])
+    r2 = np.radians(X2[:, :2])
+    lon1, lat1 = r1[:, 0:1], r1[:, 1:2]
+    lon2, lat2 = r2[None, :, 0], r2[None, :, 1]
+    hav = (
+        np.sin((lat1 - lat2) / 2.0) ** 2
+        + np.cos(lat1) * np.cos(lat2) * np.sin((lon1 - lon2) / 2.0) ** 2
+    )
+    d_surf = 2.0 * np.arcsin(np.minimum(np.sqrt(np.maximum(hav, 0.0)), 1.0)) * AVG_EARTH_RADIUS_KM
+    d_depth = X1[:, 2][:, None] - X2[:, 2][None, :]
+    return (d_surf / lscales[0]) ** 2 + (d_depth / lscales[1]) ** 2
+
+
 def scaled_sq_distance_np(dfn_str, X1, X2, dfn_params):
     if dfn_str == "euclidean":
         return _sq_euclidean_np(X1, X2, dfn_params)
     if dfn_str == "lld":
-        raise NotImplementedError("the great-circle distance comes with the seismic slice "
-                                  "(ROADMAP, still to port: the seismic experiment)")
+        return _sq_lld_np(X1, X2, dfn_params)
     raise ValueError(dfn_str)
 
 

@@ -10,6 +10,12 @@ piecewise constant in X, so gradients flow only through the gathers.  If a
 block outgrows the padded slot count m, the extra points are dropped and an
 overflow flag (a device tensor, read by the caller when it chooses) says
 that the layout must be rebuilt with a larger m.
+
+The losses take one theta [ntheta] and return a scalar, or R replicas'
+thetas [R, ntheta] and return [R]: the replicas are re-blocked one by one
+and then folded into the objective's kernel batch
+(:func:`gprf_torch.model.objective.gprf_ll_schur`), so one gradient of the
+sum gives each replica its own gradient.
 """
 
 from __future__ import annotations
@@ -47,6 +53,22 @@ def assemble_layout(blocks, B: int, m: int):
     assignment = slots[:, :m]
     mask = torch.arange(m, device=dev)[None, :] < counts[:, None]
     return assignment, mask, counts.max() > m
+
+
+def block_counts(blocks, B: int):
+    """Points per block [..., B] from labels [..., n]."""
+    blocks = blocks.long()
+    counts = torch.zeros((*blocks.shape[:-1], B), dtype=torch.int64, device=blocks.device)
+    return counts.scatter_add_(-1, blocks, torch.ones_like(blocks))
+
+
+def stacked_layout(blocks, B: int, m: int):
+    """:func:`assemble_layout` of each replica's labels [R, n], stacked:
+    (assignment [R, B, m], mask [R, B, m], overflow [R])."""
+    if len(blocks) == 1:  # views: no copy on the single-start path
+        return tuple(t[None] for t in assemble_layout(blocks[0], B, m))
+    parts = [assemble_layout(b, B, m) for b in blocks]
+    return tuple(torch.stack(t) for t in zip(*parts))
 
 
 class FusedSyntheticGPRF:
@@ -117,10 +139,11 @@ class FusedSyntheticGPRF:
     # ---- partition ---------------------------------------------------------
 
     def _assign_device(self, X):
-        """Per-point nearest-center labels (piecewise constant in X)."""
+        """Per-point nearest-center labels [..., n] of X [..., n, dx]
+        (piecewise constant in X)."""
         c = self.centers
         scores = -2.0 * (X @ c.T) + torch.sum(c * c, dim=1)
-        return torch.argmin(scores, dim=1)
+        return torch.argmin(scores, dim=-1)
 
     def _assign_host(self, X):
         X = torch.as_tensor(np.asarray(X), dtype=self.dtype, device=self.device)
@@ -166,33 +189,44 @@ class FusedSyntheticGPRF:
         counts = np.bincount(self._assign_host(X), minlength=self.n_blocks)
         return int(counts.max()) <= self.m
 
+    def check_capacity_batch(self, thetas) -> bool:
+        """:meth:`check_capacity` of every replica of thetas [R, ntheta], in
+        one device call."""
+        Xs = [self.unpack_host(t)[0] for t in np.asarray(thetas)]
+        if Xs[0] is None:
+            return True
+        X = torch.as_tensor(np.stack(Xs), dtype=self.dtype, device=self.device)
+        return int(block_counts(self._assign_device(X), self.n_blocks).max()) <= self.m
+
     def grow_capacity(self):
         self.m += 16
 
     def _unpack(self, theta, X_fixed):
+        """Each replica's X [R, n, dx] from thetas [R, ntheta]."""
         nflat = int(np.prod(self.shape))
-        X = theta[:nflat].reshape(self.shape) if self.task in ("x", "xcov") else X_fixed
-        return X, nflat
+        if self.task in ("x", "xcov"):
+            return theta[:, :nflat].reshape(-1, *self.shape), nflat
+        return X_fixed.expand(theta.shape[0], *self.shape), nflat
 
     def overflow_fn(self):
-        """theta -> 0-d bool tensor: does a block outgrow m at this point?
-        Matches :meth:`check_capacity` without a host round trip."""
+        """theta [ntheta] or [R, ntheta] -> bool tensor [] or [R]: does a
+        block outgrow m at this point?  Matches :meth:`check_capacity`
+        without a host round trip."""
         B, m = self.n_blocks, self.m
         X_fixed = torch.as_tensor(self.X0, dtype=self.dtype, device=self.device)
 
         def f(theta):
-            X, _ = self._unpack(theta, X_fixed)
-            blocks = self._assign_device(X.detach())
-            counts = torch.zeros(B, dtype=torch.int64, device=blocks.device).scatter_add_(
-                0, blocks, torch.ones_like(blocks))
-            return counts.max() > m
+            X, _ = self._unpack(theta.reshape(-1, theta.shape[-1]), X_fixed)
+            counts = block_counts(self._assign_device(X.detach()), B)
+            return (counts.amax(dim=-1) > m).reshape(theta.shape[:-1])
 
         return f
 
     # ---- the fused loss ----------------------------------------------------
 
     def objective_fn(self):
-        """theta -> (loss, overflow) at the current capacity m."""
+        """theta -> (loss, overflow) at the current capacity m; theta [ntheta]
+        gives scalars, thetas [R, ntheta] give [R] each."""
         dtype, dev = self.dtype, self.device
         B, m, task = self.n_blocks, self.m, self.task
         ncov = None if self.C0 is None else self.C0.shape[1]
@@ -203,43 +237,46 @@ class FusedSyntheticGPRF:
         routes = dict(mvn_inv=self.mvn_inv, unary_doubling=self.unary_doubling)
 
         def objective(theta):
-            X, nflat = self._unpack(theta, X_fixed)
+            th = theta.reshape(-1, theta.shape[-1])
+            R = th.shape[0]
+            X, nflat = self._unpack(th, X_fixed)
             if task in ("cov", "xcov"):
-                c = (theta[nflat:] if task == "xcov" else theta) / cov_scale
+                c = (th[:, nflat:] if task == "xcov" else th) / cov_scale
                 C = torch.exp(c)
                 if ncov == 1:
-                    nv = torch.tensor(noise_var, dtype=dtype, device=dev)
-                    sv = torch.ones((), dtype=dtype, device=dev)
-                    ls = torch.stack([C[0], C[0]])
+                    nv = torch.full((R,), noise_var, dtype=dtype, device=dev)
+                    sv = torch.ones((R, 1), dtype=dtype, device=dev)
+                    ls = torch.cat([C[:, :1], C[:, :1]], dim=1)
                 else:
-                    nv, sv, ls = C[0], C[1], C[2:]
+                    nv, sv, ls = C[:, 0], C[:, 1:2], C[:, 2:]
             else:
-                nv = torch.tensor(noise_var, dtype=dtype, device=dev)
-                sv = base_cov.wfn_params[0]
-                ls = base_cov.dfn_params
+                nv = torch.full((R,), noise_var, dtype=dtype, device=dev)
+                sv = base_cov.wfn_params.expand(R, 1)
+                ls = base_cov.dfn_params.expand(R, -1)
 
-            assignment, mask, overflow = assemble_layout(
-                self._assign_device(X.detach()), B, m)
-            params = GPRFParams(X=X, wfn_params=sv.reshape(1), dfn_params=ls, noise_var=nv)
+            assignment, mask, overflow = stacked_layout(self._assign_device(X.detach()), B, m)
+            params = GPRFParams(X=X, wfn_params=sv, dfn_params=ls, noise_var=nv)
             ll = gprf_ll_schur(
                 params, self.Y, assignment, mask, self.edges, self.unary_weights,
                 self.pair_weights, dfn_str=base_cov.dfn_str, wfn_str=base_cov.wfn_str,
                 acc_dtype=acc_dtype, ops=ops, **routes,
             )
             if task in ("x", "xcov"):
-                r = (X.reshape(-1) - self.X_obs_flat) / obs_std
-                ll = ll - 0.5 * torch.sum(r * r) - 0.5 * nflat * math.log(
+                r = (X.reshape(R, -1) - self.X_obs_flat) / obs_std
+                ll = ll - 0.5 * torch.sum(r * r, dim=-1) - 0.5 * nflat * math.log(
                     2 * math.pi * obs_std**2)
             if task in ("cov", "xcov"):
                 rc = (c + 1.0) / 10.0
-                ll = ll - 0.5 * torch.sum(rc * rc) - 0.5 * c.shape[0] * math.log(
+                ll = ll - 0.5 * torch.sum(rc * rc, dim=-1) - 0.5 * c.shape[-1] * math.log(
                     2 * math.pi * 100.0)
-            return -ll, overflow
+            shape = theta.shape[:-1]
+            return (-ll).reshape(shape), overflow.reshape(shape)
 
         return objective
 
     def loss_fn(self):
-        """theta -> loss (the negative log-posterior) at the current m."""
+        """theta -> loss (the negative log-posterior) at the current m, a
+        scalar, or [R] for thetas [R, ntheta]."""
         objective = self.objective_fn()
         return lambda theta: objective(theta)[0]
 

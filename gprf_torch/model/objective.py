@@ -62,71 +62,98 @@ class GPRFParams(NamedTuple):
 def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
               cov: GPCov, noise_var, acc_dtype=None, ops: Ops = KERNEL_OPS,
               mvn_inv: bool = False, unary_doubling: bool = False):
-    """GPRF log-likelihood with the pair terms factored through the unary
-    inverse factors.  ``acc_dtype`` (default: X's dtype) accumulates the
-    scalar tails: the per-block quadratic forms, log-determinants and the
-    weighted block sums.  ``mvn_inv`` and ``unary_doubling`` pick the
-    routes of the module docstring."""
+    """GPRF log-likelihood [R] of R replicas, with the pair terms factored
+    through the unary inverse factors.
+
+    Each replica has its own points ``X [R, n, dx]``, layout ``assignment``
+    and ``mask [R, B, m]`` and hyperparameters (``cov``'s ``wfn_params
+    [R, 1]``, ``dfn_params [R, k]``, ``noise_var [R]``); Y, the edges and
+    the weights are shared.  The replicas are folded into the kernels'
+    batch: K1 runs once on [R B, m, m], K2 (and K3 in its backward) once on
+    [R E, m, m], and the terms are summed back per replica.
+
+    ``acc_dtype`` (default: X's dtype) accumulates the scalar tails: the
+    per-block quadratic forms, log-determinants and the weighted block
+    sums.  ``mvn_inv`` and ``unary_doubling`` pick the routes of the module
+    docstring."""
     dtype = X.dtype
     acc = dtype if acc_dtype is None else acc_dtype
+    R, B, m = assignment.shape
     dy = Y.shape[-1]
-    m = assignment.shape[1]
-    assignment = assignment.long()
     maskf = mask.to(dtype)
     eye = torch.eye(m, dtype=dtype, device=X.device)
+    # hyperparameters broadcast against the [R, B, m, .] block tensors
+    cov = GPCov(wfn_params=cov.wfn_params.reshape(R, 1, 1, 1),
+                dfn_params=cov.dfn_params.reshape(R, 1, 1, -1),
+                dfn_str=cov.dfn_str, wfn_str=cov.wfn_str)
+    noise_var = noise_var.reshape(R, 1, 1, 1)
 
     # ---- unary pass: K1 over every block (K5 + doubling on that route)
     # index_select, not X[assignment]: its backward is an index_add, where
     # advanced indexing's is a sort-based index_put that took ~0.6 ms of a
     # flagship evaluation on the H100 (it sums in another order, so the X
     # gradient on the card varies in the last bits from run to run)
-    Xb = X.index_select(0, assignment.reshape(-1)).reshape(*assignment.shape, X.shape[-1])
+    n = X.shape[1]
+    flat = assignment.long()
+    if R > 1:  # replica r's points sit at rows r n .. r n + n - 1 of the flat X
+        flat = flat + torch.arange(R, device=X.device).reshape(R, 1, 1) * n
+    Xb = X.reshape(R * n, -1).index_select(0, flat.reshape(-1)).reshape(R, B, m, X.shape[-1])
     Kp = pad_kernel_matrix(cross_kernel_matrix(cov, Xb, Xb) + noise_var * eye, mask)
-    Ym = Y[assignment] * maskf[:, :, None]
+    Ym = Y[assignment.long()] * maskf[..., None]
     if unary_doubling:
-        Ls = cholesky_split(Kp, ops=ops)
+        Ls = cholesky_split(Kp.reshape(R * B, m, m), ops=ops)
         Ws = batched_tri_inv_doubling(Ls)
     else:
-        Ls, Ws = chol_inv_split(Kp, ops=ops)
+        Ls, Ws = chol_inv_split(Kp.reshape(R * B, m, m), ops=ops)
+    Ls, Ws = Ls.reshape(R, B, m, m), Ws.reshape(R, B, m, m)
     Zs = Ws @ Ym
-    quads = torch.sum((Zs * Zs).to(acc), dim=(1, 2))
-    logdets = 2.0 * torch.sum(torch.log(torch.diagonal(Ls, dim1=1, dim2=2)).to(acc), dim=1)
-    nbs = torch.sum(maskf.to(acc), dim=1)
-    unary_ll = -0.5 * quads - 0.5 * dy * logdets - 0.5 * dy * nbs * _LOG_2PI
-    total = torch.sum(unary_weights.to(acc) * unary_ll)
-    if edges.shape[0] == 0:
+    quads = torch.sum((Zs * Zs).to(acc), dim=(-2, -1))
+    logdets = 2.0 * torch.sum(torch.log(torch.diagonal(Ls, dim1=-2, dim2=-1)).to(acc), dim=-1)
+    nbs = torch.sum(maskf.to(acc), dim=-1)
+    unary_ll = -0.5 * quads - 0.5 * dy * logdets - 0.5 * dy * nbs * _LOG_2PI  # [R, B]
+    total = torch.sum(unary_weights.to(acc) * unary_ll, dim=-1)
+    E = edges.shape[0]
+    if E == 0:
         return total
 
     # ---- pair pass: K2 (or K4) over every Schur complement against the i-side factor
     ei = edges[:, 0].long()
     ej = edges[:, 1].long()
-    Kij = cross_kernel_matrix(cov, Xb[ei], Xb[ej])
-    Kij = Kij * (maskf[ei][:, :, None] * maskf[ej][:, None, :])
-    Bm = Ws[ei] @ Kij
+    Kij = cross_kernel_matrix(cov, Xb[:, ei], Xb[:, ej])
+    Kij = Kij * (maskf[:, ei][..., :, None] * maskf[:, ej][..., None, :])
+    Bm = Ws[:, ei] @ Kij
     # padded rows of Kp[ej] are identity and the matching Bm columns are
     # zero, so S stays padded-masked
-    S = Kp[ej] - Bm.mT @ Bm
-    rhs = Ym[ej] - Bm.mT @ Zs[ei]
-    nbj = torch.sum(maskf[ej], dim=1)
-    pair_ll = unary_ll[ei] + mvn_ll_split(S, rhs, nbj, ops=ops, mvn_inv=mvn_inv).to(acc)
-    return total + torch.sum(pair_weights.to(acc) * pair_ll)
+    S = Kp[:, ej] - Bm.mT @ Bm
+    rhs = Ym[:, ej] - Bm.mT @ Zs[:, ei]
+    nbj = torch.sum(maskf[:, ej], dim=-1)
+    pair_mvn = mvn_ll_split(S.reshape(R * E, m, m), rhs.reshape(R * E, m, dy),
+                            nbj.reshape(R * E), ops=ops, mvn_inv=mvn_inv)
+    pair_ll = unary_ll[:, ei] + pair_mvn.reshape(R, E).to(acc)
+    return total + torch.sum(pair_weights.to(acc) * pair_ll, dim=-1)
 
 
 def gprf_ll_schur(params: GPRFParams, Y, assignment, mask, edges, unary_weights,
                   pair_weights, dfn_str: str = "euclidean", wfn_str: str = "se",
                   acc_dtype=None, ops: Ops = KERNEL_OPS, mvn_inv: bool = False,
                   unary_doubling: bool = False):
-    """Scalar GPRF log-likelihood via the Schur-complement pair form.
+    """GPRF log-likelihood via the Schur-complement pair form.
 
     ``assignment``/``mask`` are the padded [B, m] block layout, ``edges``
     the [E, 2] block pairs, and the weights the per-term combination
-    weights (1 - |E_i| for blocks, 1 for pairs).  ``mvn_inv`` and
+    weights (1 - |E_i| for blocks, 1 for pairs).  A scalar, or [R] for R
+    replicas: then ``params.X`` is [R, n, dx], the layout [R, B, m] and the
+    hyperparameters carry a leading R (:func:`_schur_ll`).  ``mvn_inv`` and
     ``unary_doubling`` pick a route (module docstring); both default off."""
+    batched = params.X.dim() == 3
     cov = GPCov(wfn_params=params.wfn_params, dfn_params=params.dfn_params,
                 dfn_str=dfn_str, wfn_str=wfn_str)
-    return _schur_ll(params.X, Y, assignment, mask, edges, unary_weights, pair_weights,
-                     cov, params.noise_var, acc_dtype=acc_dtype, ops=ops, mvn_inv=mvn_inv,
-                     unary_doubling=unary_doubling)
+    X = params.X if batched else params.X[None]
+    ll = _schur_ll(X, Y, assignment if batched else assignment[None],
+                   mask if batched else mask[None], edges, unary_weights, pair_weights,
+                   cov, params.noise_var, acc_dtype=acc_dtype, ops=ops, mvn_inv=mvn_inv,
+                   unary_doubling=unary_doubling)
+    return ll if batched else ll[0]
 
 
 def gprf_value_and_grad_schur(params: GPRFParams, Y, assignment, mask, edges, unary_weights,

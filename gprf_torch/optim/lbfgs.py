@@ -1,7 +1,8 @@
 """Scan-style L-BFGS with retrospective Armijo control, and the drivers
 around it that keep the experiment's file protocol (mirror of
-``make_scan_lbfgs_runner``, ``do_optimization_fused`` and
-``do_optimization_fused_theta`` in ``gprf_tpu/optim/device_lbfgs.py``).
+``make_scan_lbfgs_runner``, ``make_multistart_runner``, the multistart
+drivers, ``do_optimization_fused`` and ``do_optimization_fused_theta`` in
+``gprf_tpu/optim/device_lbfgs.py``).
 
 Exactly one loss+gradient evaluation per iteration and no data-dependent
 control flow: step k evaluates the point proposed by step k-1; if the
@@ -10,6 +11,13 @@ the trial evaluation *is* the next iteration's evaluation.  The accept and
 revert decisions are ``torch.where`` selections on device tensors, so a
 dispatch of S iterations never waits for the device; the caller reads the
 per-dispatch outputs once.
+
+Every state tensor may carry leading replica dimensions: R independent
+optimizations of a loss that maps thetas [R, n] to values [R] advance
+together (multistart), each with its own acceptance, curvature memory,
+``head`` and step scale.  The reference ``vmap``s its runner; here the
+replicas are folded into the loss's own batch, so its kernels launch once
+for all of them.
 """
 
 from __future__ import annotations
@@ -26,12 +34,20 @@ _F32_EPS = float(torch.finfo(torch.float32).eps)
 
 
 def value_and_grad(loss_fn, x):
-    """(loss, gradient) of a scalar loss at x, both detached."""
+    """(loss, gradient) of a loss at x, both detached.  For replicas x
+    [R, n] and values [R], the gradient of their sum is each replica's own,
+    since the terms are independent."""
     x = x.detach().requires_grad_(True)
     with torch.enable_grad():
         v = loss_fn(x)
-        (g,) = torch.autograd.grad(v, x)
+        (g,) = torch.autograd.grad(v.sum() if v.dim() else v, x)
     return v.detach(), g
+
+
+def _dot(a, b):
+    """a . b over the last dimension, for any leading dimensions, as one
+    matrix product (one launch, where a product and a sum are two)."""
+    return (a[..., None, :] @ b[..., :, None])[..., 0, 0]
 
 
 def make_scan_lbfgs_runner(loss_fn, num_steps: int, memory_size: int = 10,
@@ -39,45 +55,52 @@ def make_scan_lbfgs_runner(loss_fn, num_steps: int, memory_size: int = 10,
                            eta_grow: float = 1.2, aux_fn=None):
     """(init_fn, run_fn): ``init_fn(x0) -> carry`` and ``run_fn(carry) ->
     (carry, (values, accepted, gnorms))`` advancing ``num_steps``
-    iterations.  The carry is a dict of tensors.
+    iterations.  The carry is a dict of tensors.  x0 is [n], or [R, n] for
+    R replicas, and then every output carries a leading R (values
+    [R, num_steps]).
 
-    ``aux_fn`` (optional, theta -> 0-d bool tensor) is evaluated on the
-    last evaluated point and the pending proposal and its OR is appended to
-    the outputs (the fused loss's capacity-overflow flag); a non-finite
-    point is masked out."""
+    ``aux_fn`` (optional, theta -> bool tensor, one per replica) is
+    evaluated on the last evaluated point and the pending proposal and its
+    OR is appended to the outputs (the fused loss's capacity-overflow
+    flag); a non-finite point is masked out."""
     M = memory_size
 
     def init_fn(x0):
         v0, g0 = value_and_grad(loss_fn, x0)
-        n, dt, dev = x0.shape[0], x0.dtype, x0.device
+        batch, n, dt, dev = x0.shape[:-1], x0.shape[-1], x0.dtype, x0.device
         return dict(
             x=x0, v=v0, g=g0, x_prev=x0, v_prev=v0, g_prev=g0,
-            first=torch.ones((), dtype=torch.bool, device=dev),
-            eta=torch.ones((), dtype=dt, device=dev),
-            S=torch.zeros((M, n), dtype=dt, device=dev),
-            Ymem=torch.zeros((M, n), dtype=dt, device=dev),
-            rho=torch.zeros((M,), dtype=dt, device=dev),
-            valid=torch.zeros((M,), dtype=torch.bool, device=dev),
-            head=torch.zeros((), dtype=torch.int64, device=dev),
+            first=torch.ones(batch, dtype=torch.bool, device=dev),
+            eta=torch.ones(batch, dtype=dt, device=dev),
+            S=torch.zeros((*batch, M, n), dtype=dt, device=dev),
+            Ymem=torch.zeros((*batch, M, n), dtype=dt, device=dev),
+            rho=torch.zeros((*batch, M), dtype=dt, device=dev),
+            valid=torch.zeros((*batch, M), dtype=torch.bool, device=dev),
+            head=torch.zeros(batch, dtype=torch.int64, device=dev),
         )
 
     def _two_loop(g, S, Ymem, rho, valid, head):
         # newest-first order of the circular memory
-        idxs = (head - 1 - torch.arange(M, device=g.device)) % M
-        S, Ymem, rho, valid = S[idxs], Ymem[idxs], rho[idxs], valid[idxs]
+        idxs = (head[..., None] - 1 - torch.arange(M, device=g.device)) % M
+        S = torch.take_along_dim(S, idxs[..., None], dim=-2)
+        Ymem = torch.take_along_dim(Ymem, idxs[..., None], dim=-2)
+        rho = torch.take_along_dim(rho, idxs, dim=-1)
+        valid = torch.take_along_dim(valid, idxs, dim=-1)
         q = g
         alphas = []
         for i in range(M):
-            alpha = torch.where(valid[i], rho[i] * torch.dot(S[i], q), 0.0)
-            q = q - alpha * Ymem[i] * valid[i]
+            use = valid[..., i]
+            alpha = torch.where(use, rho[..., i] * _dot(S[..., i, :], q), 0.0)
+            q = q - alpha[..., None] * Ymem[..., i, :] * use[..., None]
             alphas.append(alpha)
         # initial Hessian scaling gamma = s.y / y.y of the newest pair
-        sy = torch.dot(S[0], Ymem[0])
-        yy = torch.dot(Ymem[0], Ymem[0])
-        r = torch.where(valid[0] & (yy > 0), sy / yy, 1.0) * q
+        sy = _dot(S[..., 0, :], Ymem[..., 0, :])
+        yy = _dot(Ymem[..., 0, :], Ymem[..., 0, :])
+        r = torch.where(valid[..., 0] & (yy > 0), sy / yy, 1.0)[..., None] * q
         for i in reversed(range(M)):  # oldest-first
-            beta = torch.where(valid[i], rho[i] * torch.dot(Ymem[i], r), 0.0)
-            r = r + torch.where(valid[i], alphas[i] - beta, 0.0) * S[i]
+            use = valid[..., i]
+            beta = torch.where(use, rho[..., i] * _dot(Ymem[..., i, :], r), 0.0)
+            r = r + torch.where(use, alphas[i] - beta, 0.0)[..., None] * S[..., i, :]
         return -r  # descent direction
 
     def step(c):
@@ -85,36 +108,38 @@ def make_scan_lbfgs_runner(loss_fn, num_steps: int, memory_size: int = 10,
         # nonmonotone slack at float32's resolution of the objective: the
         # block factorizations compute in f32 whatever the accumulator
         slack = 8.0 * _F32_EPS * torch.abs(c["v_prev"])
-        expected = c1 * torch.abs(torch.dot(c["g_prev"], c["x"] - c["x_prev"]))
+        expected = c1 * torch.abs(_dot(c["g_prev"], c["x"] - c["x_prev"]))
         ok = c["first"] | (v_new <= c["v_prev"] - expected) | (v_new <= c["v_prev"] + slack)
 
-        # on accept: fold (s, y) into memory if the curvature is positive
+        # on accept: fold (s, y) into memory slot head % M if the curvature
+        # is positive
         s = c["x"] - c["x_prev"]
         y = g_new - c["g_prev"]
-        sy = torch.dot(s, y)
+        sy = _dot(s, y)
         store = ok & ~c["first"] & (sy > 1e-10)
-        h = (c["head"] % M).reshape(1)
-        S = torch.where(store, c["S"].index_copy(0, h, s[None]), c["S"])
-        Ymem = torch.where(store, c["Ymem"].index_copy(0, h, y[None]), c["Ymem"])
+        slot = (torch.arange(M, device=s.device) == (c["head"] % M)[..., None]) & store[..., None]
+        S = torch.where(slot[..., None], s[..., None, :], c["S"])
+        Ymem = torch.where(slot[..., None], y[..., None, :], c["Ymem"])
         rho_h = 1.0 / torch.where(sy > 1e-10, sy, 1.0)
-        rho = torch.where(store, c["rho"].index_copy(0, h, rho_h.reshape(1)), c["rho"])
-        valid = torch.where(store, c["valid"].index_fill(0, h, True), c["valid"])
+        rho = torch.where(slot, rho_h[..., None], c["rho"])
+        valid = c["valid"] | slot
         head = torch.where(store, c["head"] + 1, c["head"])
 
         # effective state: accepted -> new point; rejected -> revert
-        x_eff = torch.where(ok, c["x"], c["x_prev"])
+        x_eff = torch.where(ok[..., None], c["x"], c["x_prev"])
         v_eff = torch.where(ok, v_new, c["v_prev"])
-        g_eff = torch.where(ok, g_new, c["g_prev"])
+        g_eff = torch.where(ok[..., None], g_new, c["g_prev"])
         eta = torch.where(ok, torch.clamp_max(c["eta"] * eta_grow, 1.0), c["eta"] * eta_shrink)
 
         d = _two_loop(g_eff, S, Ymem, rho, valid, head)
         # first-iteration safeguard: gradient-norm-scaled steepest descent
-        gn = torch.linalg.vector_norm(g_eff)
-        d = torch.where(valid.any(), d, -g_eff / torch.clamp_min(gn, 1.0))
+        gn = torch.linalg.vector_norm(g_eff, dim=-1)
+        d = torch.where(valid.any(dim=-1)[..., None], d,
+                        -g_eff / torch.clamp_min(gn, 1.0)[..., None])
         out = dict(
-            x=x_eff + eta * d, v=v_eff, g=g_eff, x_prev=x_eff, v_prev=v_eff, g_prev=g_eff,
-            first=torch.zeros_like(c["first"]), eta=eta, S=S, Ymem=Ymem, rho=rho,
-            valid=valid, head=head,
+            x=x_eff + eta[..., None] * d, v=v_eff, g=g_eff, x_prev=x_eff, v_prev=v_eff,
+            g_prev=g_eff, first=torch.zeros_like(c["first"]), eta=eta, S=S, Ymem=Ymem,
+            rho=rho, valid=valid, head=head,
         )
         return out, (v_eff, ok, gn)
 
@@ -123,17 +148,26 @@ def make_scan_lbfgs_runner(loss_fn, num_steps: int, memory_size: int = 10,
         for _ in range(num_steps):
             carry, outs = step(carry)
             traj.append(outs)
-        values, accepted, gnorms = (torch.stack(t) for t in zip(*traj))
+        values, accepted, gnorms = (torch.stack(t, dim=-1) for t in zip(*traj))
         if aux_fn is None:
             return carry, (values, accepted, gnorms)
 
         def masked(pt):
-            return aux_fn(pt) & torch.isfinite(pt).all()
+            return aux_fn(pt) & torch.isfinite(pt).all(dim=-1)
 
         return carry, (values, accepted, gnorms,
                        masked(carry["x_prev"]) | masked(carry["x"]))
 
     return init_fn, run_fn
+
+
+def make_multistart_runner(loss_fn, num_steps: int, **kwargs):
+    """R independent optimizations of a replica-batched loss (thetas
+    [R, n] -> values [R]) from different starts, advancing together:
+    :func:`make_scan_lbfgs_runner` with x0s [R, n].  Each replica's
+    trajectory is the one its start gives alone, up to the reassociation
+    of the loss's batched reductions."""
+    return make_scan_lbfgs_runner(loss_fn, num_steps, **kwargs)
 
 
 # ---- drivers: the file protocol around the runner ---------------------------
@@ -158,10 +192,13 @@ class GrowingRunner:
         self.init_fn, self.run_fn = make_scan_lbfgs_runner(
             self.fused.loss_fn(), self.steps_per_dispatch, aux_fn=self.fused.overflow_fn())
 
-    def grow(self, carry):
+    def grow(self, carry, at: str = "x"):
+        """Grow, and restart at ``carry[at]``: the single-start drivers at
+        the pending proposal ``x``, the multistart driver at the last
+        evaluated point ``x_prev``, as the reference's drivers do."""
         self.fused.grow_capacity()
         self._make()
-        return {**self.init_fn(carry["x"]), **{k: carry[k] for k in self.KEPT}}
+        return {**self.init_fn(carry[at]), **{k: carry[k] for k in self.KEPT}}
 
 
 def _truncate_log_rows(path, it0):
@@ -339,12 +376,172 @@ def do_optimization_fused(d, fused, X0, maxsec: float = 3600, max_iters: int = 4
         ckpt_every_sec=ckpt_every_sec, stall_patience=stall_patience)
 
 
-def do_optimization_multistart(*args, **kwargs):
-    raise NotImplementedError("the multistart drivers are not ported yet (ROADMAP, still to "
-                              "port: multistart)")
+# ---- multistart: R replicas in one loop ----------------------------------------
+
+def _replica_bad_mask(x, v):
+    """[R] bool on the device: the replicas whose proposal or value is not
+    finite."""
+    return ~(torch.isfinite(x).all(dim=-1) & torch.isfinite(v))
 
 
-do_optimization_multistart_theta = do_optimization_multistart
+def _sanitize_replicas(carry, bad=None):
+    """Restart every replica whose state went non-finite instead of ending
+    the run: it resumes from its last evaluated point ``x_prev`` (or the
+    best healthy replica's, if that too is not finite) with a cleared
+    curvature memory, step scale 0.25 and v = +inf, so it cannot win before
+    its next evaluation.  Raises only when no replica is left.  ``bad`` is
+    the host copy of :func:`_replica_bad_mask` (computed when omitted).
+    Returns (carry, number restarted)."""
+    if bad is None:
+        bad = _replica_bad_mask(carry["x"], carry["v"]).cpu().numpy()
+    if not bad.any():
+        return carry, 0
+    host = {k: v.cpu().numpy().copy() for k, v in carry.items()}
+    prev_ok = np.isfinite(host["x_prev"]).all(axis=1)
+    vs = np.where(prev_ok & np.isfinite(host["v"]), host["v"], np.inf)
+    donor = int(np.argmin(vs))
+    if not np.isfinite(vs[donor]):
+        raise FloatingPointError("every replica diverged to non-finite state")
+    for r in np.where(bad)[0]:
+        src = host["x_prev"][r] if prev_ok[r] else host["x_prev"][donor]
+        host["x"][r] = src
+        host["x_prev"][r] = src
+        host["g"][r] = host["g_prev"][r] = 0.0
+        host["v"][r] = host["v_prev"][r] = np.inf
+        host["first"][r] = True
+        host["eta"][r] = 0.25
+        host["S"][r] = host["Ymem"][r] = host["rho"][r] = 0.0
+        host["valid"][r] = False
+        host["head"][r] = 0
+    return ({k: torch.as_tensor(v, device=carry[k].device) for k, v in host.items()},
+            int(bad.sum()))
+
+
+def _check_capacity_all(fused, thetas):
+    """True iff the current capacity m holds every replica; one batched
+    call where the evaluator has it."""
+    batch = getattr(fused, "check_capacity_batch", None)
+    if batch is not None:
+        return bool(batch(thetas))
+    return all(fused.check_capacity(t) for t in thetas)
+
+
+def _run_multistart(d, fused, theta0s, unpack_fn, write_covs, maxsec, max_iters,
+                    steps_per_dispatch, ftol, ckpt_every_sec: float = 10.0,
+                    stall_patience: int = 4):
+    """The multistart loop: R replicas in one runner, per-replica stall
+    tracking (the run ends only when no replica still improves), restarts
+    of diverged replicas, ``multistart.txt`` (a row per iteration, a column
+    per replica) and the standard file protocol written for the currently
+    best replica.  The checkpointed and returned point is the winner's last
+    evaluated point ``x_prev`` (whose value is ``v``).
+
+    Per dispatch the host reads the [R, steps] values, the health mask, the
+    [R] overflow flags and the winner's cov tail; the [R, n] thetas cross
+    on the ``ckpt_every_sec`` cadence and after the last dispatch.  On an
+    overflow every replica grows together and keeps its curvature memory
+    (:class:`GrowingRunner`, restarted at ``x_prev``)."""
+    dev, dtype = fused.device, fused.dtype
+    theta0s = np.asarray(theta0s, dtype=np.float64)
+    R, ntheta = theta0s.shape
+    runner = GrowingRunner(fused, steps_per_dispatch)
+    carry = runner.init_fn(torch.as_tensor(theta0s, dtype=dtype, device=dev))
+    f_log = open(os.path.join(d, "log.txt"), "w")
+    f_ms = open(os.path.join(d, "multistart.txt"), "w")
+    ncov = fused.ncov if write_covs else 0
+    covf = open(os.path.join(d, "covs.txt"), "w") if ncov else None
+    t0 = time.time()
+    it = 0
+    prev_best = np.full((R,), np.inf)
+    stall = 0
+    last_ckpt = -np.inf
+
+    def checkpoint(it_base):
+        thetas = carry["x_prev"].double().cpu().numpy()
+        best_r = int(torch.argmin(carry["v"]))
+        X, FC = unpack_fn(thetas[best_r])
+        save_step(d, it_base + steps_per_dispatch - 1, X=X, FC=FC)
+
+    try:
+        while it < max_iters and time.time() - t0 < maxsec:
+            carry, (values, _, _, overflow) = runner.run_fn(carry)
+            vals = values.double().cpu().numpy()  # [R, steps] nll
+            bad = _replica_bad_mask(carry["x"], carry["v"]).cpu().numpy()
+            carry, n_restarted = _sanitize_replicas(carry, bad)
+            if n_restarted:
+                print("multistart: restarted %d diverged replica(s)" % n_restarted)
+            # a replica just restarted at its last finite point is checked
+            # again at the next dispatch
+            if (overflow.cpu().numpy() & ~bad).any():
+                carry = runner.grow(carry, at="x_prev")
+            now = time.time() - t0
+            cur_v = carry["v"].double().cpu().numpy()
+            best_r = int(np.argmin(cur_v))
+            for k in range(vals.shape[1]):
+                f_ms.write("%d %.2f %s\n" % (it + k, now, " ".join("%.2f" % (-v) for v in vals[:, k])))
+                f_log.write("%d %.2f %.2f\n" % (it + k, now, float(-vals[best_r, k])))
+            f_ms.flush()
+            f_log.flush()
+            if covf is not None:
+                tail = carry["x_prev"][best_r, ntheta - ncov:].double().cpu().numpy()
+                covf.write("%d %s\n" % (it + steps_per_dispatch - 1,
+                                        _fc_from_tail(fused, tail, ntheta)))
+                covf.flush()
+            if now - last_ckpt >= ckpt_every_sec:
+                checkpoint(it)
+                last_ckpt = now
+            it += steps_per_dispatch
+            # per-replica progress; a diverged replica's NaN column counts as
+            # +inf, so that it can register improvement after its restart
+            vals_f = np.where(np.isfinite(vals), vals, np.inf)
+            best_per = np.minimum(prev_best, vals_f.min(axis=1))
+            improved = prev_best - best_per >= ftol * (np.abs(prev_best) + 1e-12)
+            if not improved.any():
+                stall += 1
+                if stall >= stall_patience:
+                    break
+            else:
+                stall = 0
+            prev_best = best_per
+        if it:
+            # the analysis reads the checkpoint of the last logged step
+            checkpoint(it - steps_per_dispatch)
+    finally:
+        f_log.write("optimization finished after %.fs\n" % (time.time() - t0))
+        f_log.close()
+        f_ms.close()
+        if covf is not None:
+            covf.close()
+        with open(os.path.join(d, "finished"), "w") as f:
+            f.write("")
+    final_v = carry["v"].double().cpu().numpy()
+    best_r = int(np.argmin(final_v))
+    return carry["x_prev"][best_r].double().cpu().numpy(), float(final_v[best_r]), final_v
+
+
+def do_optimization_multistart(d, fused, X0s, maxsec: float = 3600, max_iters: int = 400,
+                               steps_per_dispatch: int = 20, ftol: float = 1e-6,
+                               stall_patience: int = 4):
+    """Multistart over a task=x fused loss from starts X0s [R, n, dx]: the
+    per-replica objectives in ``multistart.txt``, the winner through the
+    standard file protocol.  Returns (best_x, best_v, final_values [R])."""
+    X0s = np.asarray(X0s, dtype=np.float64)
+    shape = X0s.shape[1:]
+    return _run_multistart(d, fused, X0s.reshape(X0s.shape[0], -1),
+                           lambda t: (t.reshape(shape), None), False, maxsec, max_iters,
+                           steps_per_dispatch, ftol, stall_patience=stall_patience)
+
+
+def do_optimization_multistart_theta(d, fused, theta0s, maxsec: float = 3600,
+                                     max_iters: int = 600, steps_per_dispatch: int = 20,
+                                     ftol: float = 1e-6, stall_patience: int = 4):
+    """Multistart over a theta-packed fused evaluator (synthetic cov/xcov or
+    seismic) from thetas [R, ntheta]: the winner's X and cov trajectory
+    through the standard file protocol (log.txt, step checkpoints,
+    covs.txt), the per-replica objectives in ``multistart.txt``.  Returns
+    (best_theta, best_v, final_values [R])."""
+    return _run_multistart(d, fused, theta0s, fused.unpack_host, True, maxsec, max_iters,
+                           steps_per_dispatch, ftol, stall_patience=stall_patience)
 
 
 def refine_f64(*args, **kwargs):

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Where a host-engine evaluation of gprf_torch spends its time on the card.
 
-    python3 scripts/torch_host_profile.py [--maxsec 5]
+    python3 scripts/torch_host_profile.py [--maxsec 5] [--seismic]
 
-Runs the command line's flagship (n = 10,000 + 500, 100 blocks, task x)
-with ``--engine host`` for ``--maxsec`` seconds under cProfile, into a
-temporary GPRF_EXPERIMENTS, and prints the functions with the largest
-cumulative time, with the number of evaluations logged.  Needs one CUDA
-device.
+Runs the command line's flagship (n = 10,000 + 500, 100 blocks, task x),
+or with ``--seismic`` the seismic command (12,000 events, 64 PD-tree
+blocks, task xcov), with ``--engine host`` for ``--maxsec`` seconds under
+cProfile, into a temporary experiment directory, and prints the functions
+with the largest cumulative time, with the number of evaluations logged.
+Needs one CUDA device.
 """
 
 import argparse
@@ -33,9 +34,12 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--maxsec", type=int, default=5)
     parser.add_argument("--rows", type=int, default=30)
+    parser.add_argument("--seismic", action="store_true")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_host_profile.py: no CUDA device")
+    if args.seismic:
+        return profile_seismic(args)
     flags = ["--ntrain", "10000", "--ntest", "500", "--nblocks", "100", "--lscale", "0.06",
              "--obs_std", "0.02", "--local_dist", "0.1", "--task", "x", "--engine", "host",
              "--maxsec", str(args.maxsec)]
@@ -54,6 +58,30 @@ def main(argv=None):
     out = io.StringIO()
     pstats.Stats(profile, stream=out).sort_stats("cumulative").print_stats(args.rows)
     print(f"{evaluations} evaluations in {args.maxsec} s; cumulative seconds by function:")
+    print(out.getvalue())
+
+
+def profile_seismic(args):
+    from gprf_torch.cli import run_seismic
+    from gprf_torch.optim.driver import load_log
+
+    with tempfile.TemporaryDirectory() as base:
+        os.environ["SEISMIC_EXPERIMENTS"] = os.path.join(base, "exp")
+        flags = ["--npts=-1", "--obs_std=20", "--threshold=0.6", "--rpc_blocksize=210",
+                 "--task=xcov", "--engine", "host", "--data_dir", base]
+        # sample, build the kernels and start the device outside the profile
+        with contextlib.redirect_stdout(sys.stderr):
+            run_seismic.main(flags + ["--maxsec", "1"])
+        flags += ["--maxsec", str(args.maxsec)]
+        profile = cProfile.Profile()
+        with contextlib.redirect_stdout(sys.stderr):
+            profile.runcall(run_seismic.main, flags)
+        d = run_seismic.seismic_exp_dir(run_seismic.build_parser().parse_args(flags))
+        evaluations = len(load_log(d)[0])
+    out = io.StringIO()
+    pstats.Stats(profile, stream=out).sort_stats("cumulative").print_stats(args.rows)
+    print(f"seismic: {evaluations} evaluations in {args.maxsec} s; cumulative seconds by "
+          "function:")
     print(out.getvalue())
 
 

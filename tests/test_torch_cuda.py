@@ -818,3 +818,148 @@ def test_bench_record_on_the_card(dev):
     assert record["device_busy_ms_per_eval"] > 0 and record["device_launches_per_eval"] > 0
     assert 0 < record["share_of_f32_peak"] < 1 and "," in record["card"]
     assert record["lbfgs_eval_ms"] > 0 and record["dispatch_eval_ms"] > 0
+
+
+# ---- the seismic slice -------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def seismic_problem():
+    """1,600 events of the synthetic catalog, observed with the command
+    line's noise (obs_std 20), a PD-tree of under 210 points a leaf over the
+    wrapped (lon, lat), edges at threshold 0.6, Y seeded normal (dy 50)."""
+    from gprf_torch.data.seismic import make_synthetic_catalog
+    from gprf_torch.model.gprf import GPRF
+    from gprf_torch.partition.pdtree import PDTree, wrap_lon
+    from gprf_torch.utils.convert import cov_from_numpy
+
+    X_true = make_synthetic_catalog(n=1600, seed=1)[:, (2, 3, 7)]
+    prior_std = 20.0 * np.array([0.01, 0.01, 1.0])
+    rng = np.random.default_rng(0)
+    means = X_true + rng.standard_normal(X_true.shape) * prior_std
+    Y = rng.standard_normal((len(means), 50))
+    X2 = means[:, :2].copy()
+    X2[:, 0] = wrap_lon(X2[:, 0])
+    tree = PDTree(X2, 210)
+    cov64 = cov_from_numpy([1.0], [40.0, 40.0], "lld", "matern32", device="cpu",
+                           dtype=torch.float64)
+    edges = GPRF(means, Y, None, cov64, 0.1, block_idxs=tree.leaf_idx(), neighbor_threshold=0.6,
+                 device="cpu", dtype=torch.float64).neighbors
+    assert len(edges) > 0
+    return dict(means=means, prior_std=prior_std, Y=Y, tree=tree, edges=edges, cov=cov64)
+
+
+def _seismic_engine(p, dev, ops):
+    """The seismic engine at the command line's width m = 192, task xcov."""
+    from gprf_torch.model.fused_seismic import FusedSeismicGPRF
+
+    return FusedSeismicGPRF(p["means"], p["Y"], p["tree"], p["edges"], p["means"], p["prior_std"],
+                            p["cov"], 0.1, task="xcov", m=192, device=dev, dtype=torch.float32,
+                            acc_dtype=torch.float64, ops=ops)
+
+
+def _seismic_thetas(fused, p, R):
+    from gprf_torch.cli.run_seismic import multistart_thetas
+
+    theta0 = fused.theta0(p["means"], np.array([[0.1, 1.0, 40.0, 40.0]]))
+    return multistart_thetas(theta0, "xcov", p["means"].size, R, 0)
+
+
+def _loss_grad(fused, theta, dev):
+    from gprf_torch.optim.lbfgs import value_and_grad
+
+    v, g = value_and_grad(fused.loss_fn(), torch.as_tensor(theta, dtype=torch.float32,
+                                                           device=dev))
+    return v.double().cpu().numpy(), g.double().cpu().numpy()
+
+
+@pytest.mark.parametrize("R", [1, 4])
+def test_seismic_loss_on_card_matches_the_twins(dev, seismic_problem, R):
+    """FusedSeismicGPRF's loss and gradient at m = 192 on the kernels (K1 on
+    [R B, 192, 192], K2 and K3 on [R E, 192, 192]) against the same on the
+    twins: per replica, loss rel <= 1e-5 and gradient cosine > 0.9999."""
+    kernels, twins = (_seismic_engine(seismic_problem, dev, ops)
+                      for ops in (mvn.KERNEL_OPS, mvn.PLAIN_OPS))
+    thetas = _seismic_thetas(kernels, seismic_problem, R)
+    theta = thetas[0] if R == 1 else thetas
+    mvn.reset_launch_counts()
+    v, g = _loss_grad(kernels, theta, dev)
+    torch.cuda.synchronize()
+    assert dict(mvn.launch_counts) == {"chol_inv": 1, "mvn_ll": 1, "tri_inv": 1, "mvn_ll_inv": 0,
+                                       "cholesky": 0}
+    v_ref, g_ref = _loss_grad(twins, theta, dev)
+    for a, b, ga, gb in zip(v.reshape(-1), v_ref.reshape(-1), g.reshape(R, -1),
+                            g_ref.reshape(R, -1)):
+        assert abs(a - b) <= 1e-5 * abs(b), (a, b)
+        assert ga @ gb / (np.linalg.norm(ga) * np.linalg.norm(gb)) > 0.9999
+
+
+def test_folded_multistart_loss_on_card_matches_single_losses(dev, seismic_problem):
+    """Four replicas folded into one kernel batch give each replica's own
+    loss and gradient, with one launch of each kernel where single losses
+    take four."""
+    fused = _seismic_engine(seismic_problem, dev, mvn.KERNEL_OPS)
+    thetas = _seismic_thetas(fused, seismic_problem, 4)
+    v, g = _loss_grad(fused, thetas, dev)
+    mvn.reset_launch_counts()
+    for r in range(4):
+        v1, g1 = _loss_grad(fused, thetas[r], dev)
+        assert abs(v[r] - v1) <= 1e-6 * abs(v1), (v[r], v1)
+        assert g[r] @ g1 / (np.linalg.norm(g[r]) * np.linalg.norm(g1)) > 0.999999
+    assert mvn.launch_counts["chol_inv"] == 4
+    overflow = fused.overflow_fn()
+    flags = overflow(torch.as_tensor(thetas, dtype=torch.float32, device=dev))
+    assert flags.shape == (4,)
+    for r in range(4):
+        one = overflow(torch.as_tensor(thetas[r], dtype=torch.float32, device=dev))
+        assert one.shape == () and bool(one) == bool(flags[r])
+
+
+def test_assign_blocks_pdtree_on_card_matches_the_host(dev, seismic_problem):
+    """The float32 traversal on the card against the float64 host replay on
+    moved points: points within float32's reach of a split plane may fall
+    on the other side, and there are few."""
+    from gprf_torch.partition.pdtree import wrap_lon
+    from gprf_torch.partition.pdtree_device import FlatPDTree, assign_blocks_pdtree
+
+    tree = seismic_problem["tree"]
+    rng = np.random.default_rng(3)
+    Xp = seismic_problem["means"][:, :2] + rng.normal(size=(len(seismic_problem["means"]), 2)) * 0.1
+    Xp[:, 0] = wrap_lon(Xp[:, 0])
+    host = np.empty(len(Xp), dtype=np.int64)
+    for b, ix in enumerate(tree.recluster(Xp)):
+        host[ix] = b
+    flat = FlatPDTree(tree)
+    got = assign_blocks_pdtree(torch.as_tensor(Xp, dtype=torch.float32, device=dev),
+                               flat.device_arrays(dev, torch.float32), flat.depth)
+    assert got.device.type == "cuda"
+    differ = int((got.cpu().numpy() != host).sum())
+    assert differ <= 2, differ
+    exact = assign_blocks_pdtree(torch.as_tensor(Xp, device=dev),
+                                 flat.device_arrays(dev, torch.float64), flat.depth)
+    np.testing.assert_array_equal(exact.cpu().numpy(), host)
+
+
+@pytest.mark.parametrize("engine", [["--engine", "host", "--maxsec", "5"],
+                                    ["--engine", "device", "--multistart", "2", "--max_iters",
+                                     "40"]])
+def test_seismic_command_line_runs_on_the_card_by_default(dev, tmp_path, monkeypatch, engine):
+    from gprf_torch.cli import run_seismic
+    from gprf_torch.data.seismic import make_synthetic_catalog
+
+    monkeypatch.setenv("SEISMIC_EXPERIMENTS", str(tmp_path / "exp"))
+    data = tmp_path / "data"
+    data.mkdir()
+    np.save(data / "sorted_isc.npy", make_synthetic_catalog(n=800, seed=2))
+    argv = ["--npts=-1", "--obs_std=20", "--threshold=0.6", "--rpc_blocksize=210", "--task=xcov",
+            "--data_dir", str(data)] + engine
+    mvn.reset_launch_counts()
+    info = run_seismic.main(argv)
+    assert all(mvn.launch_counts[k] >= 1 for k in ("chol_inv", "mvn_ll", "tri_inv"))
+    d = run_seismic.seismic_exp_dir(run_seismic.build_parser().parse_args(argv))
+    files = set(os.listdir(d))
+    assert {"log.txt", "covs.txt", "results.txt", "finished"} <= files
+    assert ("multistart.txt" in files) == ("device" in engine)
+    with open(os.path.join(d, "log.txt")) as f:
+        values = [float(line.split()[2]) for line in f if line[0].isdigit()]
+    assert np.isfinite(values).all() and max(values) > values[0] and info["blocks"] >= 4

@@ -56,9 +56,12 @@ def test_host_kernel_matrices_match_jax_and_the_tensor_kernels(wfn_str):
 
 
 def test_host_kernel_refuses_the_seismic_distance():
+    """The host great-circle distance, once refused, matches gprf_tpu's."""
     cov = cov_from_numpy([1.0], [10.0, 5.0], "lld", "se", **F64)
-    with pytest.raises(NotImplementedError):
-        thostnp.cross_kernel_matrix_np(cov, np.zeros((2, 3)), np.zeros((2, 3)))
+    jcov = JCov.create([1.0], [10.0, 5.0], "lld", "se")
+    X = np.array([[140.0, 10.0, 5.0], [140.1, 10.05, 9.0], [141.0, 9.0, 30.0]])
+    np.testing.assert_allclose(thostnp.cross_kernel_matrix_np(cov, X, X[::-1]),
+                               jhostnp.cross_kernel_matrix_np(jcov, X, X[::-1]), rtol=1e-13)
 
 
 def test_jitchol_matches_jax_with_and_without_jitter():
@@ -98,12 +101,18 @@ def test_crazy_shape_seed_out_of_range_raises():
         tsynth.sample_crazy_shape(1400, 100)
 
 
-def test_samplers_past_the_dense_limit_are_not_ported_yet():
+def test_samplers_past_the_dense_limit_are_not_ported_yet(monkeypatch):
+    """The sparse draw up to 20,000 points is ported (tests/test_torch_seismic.py);
+    the banded draw past it and the Vecchia samplers are not."""
     assert tsynth.DENSE_SAMPLING_LIMIT == jsynth.DENSE_SAMPLING_LIMIT
     cov = cov_from_numpy([1.0], [0.1, 0.1], **F64)
-    X = np.zeros((tsynth.DENSE_SAMPLING_LIMIT, 2))
+    monkeypatch.delenv("GPRF_SAMPLER", raising=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsynth.sample_y(X, cov, 0.01, 2, rng=np.random.RandomState(0))
+        tsynth.sample_y(np.zeros((20001, 2)), cov, 0.01, 2, rng=np.random.RandomState(0))
+    monkeypatch.setenv("GPRF_SAMPLER", "vecchia")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsynth.sample_y(np.zeros((tsynth.DENSE_SAMPLING_LIMIT, 2)), cov, 0.01, 2,
+                        rng=np.random.RandomState(0))
 
 
 @pytest.mark.parametrize("sampler", ["", "vecchia", "hi"])

@@ -142,10 +142,10 @@ def test_cov_row_helpers_match_jax():
 
 
 def test_unported_drivers_raise():
-    for f in (tdriver.do_optimization_seismic, tlbfgs.do_optimization_multistart,
-              tlbfgs.do_optimization_multistart_theta, tlbfgs.refine_f64):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            f()
+    # the seismic and multistart drivers are ported (tests/test_torch_seismic.py,
+    # tests/test_torch_multistart.py); the float64 refinement is not
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tlbfgs.refine_f64()
 
 
 # ---- the device-loop drivers -------------------------------------------------

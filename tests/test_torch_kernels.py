@@ -89,9 +89,13 @@ def test_safe_sqrt_zero_gradient_at_coincident_points():
 
 
 def test_lld_waits_for_the_seismic_slice():
-    X = _t(np.zeros((2, 3)))
-    with pytest.raises(NotImplementedError, match="seismic slice"):
-        distances.scaled_sq_distance("lld", X, X, _t([1.0, 1.0]))
+    """The great-circle distance, once a stub, now matches gprf_tpu's
+    through the dispatch (the seismic tests hold it and its gradient)."""
+    X = _t([[140.0, 10.0, 5.0], [141.0, 11.0, 50.0], [-40.0, -10.0, 0.0]])
+    got = distances.scaled_sq_distance("lld", X, X, _t([40.0, 20.0]))
+    ref = jdist.scaled_sq_distance("lld", jnp.asarray(X.numpy()), jnp.asarray(X.numpy()),
+                                   jnp.asarray([40.0, 20.0]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-12)
     with pytest.raises(ValueError):
         GPCov.create([1.0], [1.0], "nope", device="cpu", dtype=torch.float64)
     with pytest.raises(ValueError):

@@ -28,7 +28,8 @@ def test_the_import_check_covers_the_entry_points():
     assert {"gprf_torch.cli.gprfopt", "gprf_torch.bench", "gprf_torch.data.sampled",
             "gprf_torch.data.synthetic", "gprf_torch.analysis.results",
             "gprf_torch.model.gprf", "gprf_torch.optim.driver",
-            "gprf_torch.partition.layout"} <= set(_modules())
+            "gprf_torch.partition.layout", "gprf_torch.cli.run_seismic",
+            "gprf_torch.sparse.native", "gprf_torch.model.fused_seismic"} <= set(_modules())
 
 
 def test_imports_without_jax_optax_or_gprf_tpu():
