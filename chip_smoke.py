@@ -51,20 +51,45 @@ Phases, each of which raises on failure (exit code 1, no result line):
              shapes; K1, K2 and K3 each against its twin, timed, on the
              inputs this path gives them ([100,136,136], [342,136,136] +
              [342,136,50]).
-7. host    - the same data with ``--engine host`` for a few seconds:
+7. predict - ``--analyze --analyze_full`` on the cli phase's run directory
+             (no new fit), counters reset before and read after: the six
+             predictive columns of results.txt finite and non-zero on every
+             row and on trueX (logged beside the JAX package's artifact,
+             docs/runs/gprf10k_device/results.txt), K5 launched for the
+             predictor's block caches, K1 and K2 for the trueX objective, K3
+             and K4 not.  At the fit's final X: K5 against its twin on the
+             block caches the predictor gives it ([100,136,136]); the
+             float32 predictor on the kernels against the float64 one on the
+             twins (SMSE and MSLL within PREDICT_RTOL_SMSE,
+             PREDICT_ATOL_MSLL); prediction_error_gp once, float64 on the
+             card; one prediction_error in parts (GPRF build, block caches,
+             combination, host loop).
+8. rpc     - the command line's flagship with ``--rpc_blocksize 200`` in
+             place of ``--nblocks 100`` (device engine, 100 iterations),
+             counters reset before and read after: the files, a rising
+             objective, a falling mad, a finite trueX row, K1-K3 launched
+             and K4, K5 not; B, E and m as the engine reports them against
+             the host's cluster_rpc (64 blocks, m = 160); the float32 median
+             replay on the card against the float64 host replay at X_obs and
+             the final X (points in another block counted, at most
+             RPC_MAX_MOVED); K1-K3 against their twins on this path's inputs
+             ([64,160,160], [E,160,160] + [E,160,50]); one folded loss at
+             R = 2 against the two single ones, labels and values; the
+             device-busy ms and launches of one loss+grad.
+9. host    - the same data with ``--engine host`` for a few seconds:
              GPRF.llgrad under scipy launches K1-K3 and the objective
              rises; then GPRF.update_X across a change of the padded width
              m, the kernels against the twins on both sides of it, the whole
              llgrad and then K1, K2 and K3 each on the re-blocked model's
              inputs ([342,176,176]).
-8. resume  - a device-engine run stopped after two dispatches and resumed
+10. resume - a device-engine run stopped after two dispatches and resumed
              from optimizer_state.npz: no step index twice in log.txt.
-9. bench   - ``gprf_torch.bench``'s record, logged.
-10. multistart - the bench's problem from 3 starts: the replica-batched
+11. bench  - ``gprf_torch.bench``'s record, logged.
+12. multistart - the bench's problem from 3 starts: the replica-batched
              runner (the replicas folded into one kernel batch) against the
              single-start runner from each start over 4 steps, values within
              the routes' tolerance.
-11. seismic - ``gprf_torch.cli.run_seismic.main`` on the seismic command
+13. seismic - ``gprf_torch.cli.run_seismic.main`` on the seismic command
              (the 12,000-event catalog sampled into a temporary data_dir,
              64 PD-tree blocks, 108 edges at threshold 0.6, m = 192, dy =
              50, Matern-3/2 over the great-circle distance, task xcov)
@@ -78,12 +103,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
              ([64|256,192,192], [108|432,192,192] + [.,192,50]), the
              device-busy ms of one loss+grad at each, and the three routes
              of FusedSeismicGPRF against their twins and each other.
-12. seismic_host - the same data with ``--engine host`` for a few seconds:
+14. seismic_host - the same data with ``--engine host`` for a few seconds:
              the files and a rising objective.
 
-Output: a JSON line describing each kernel (its launches on the main path,
-its max abs error against its twin, its ms, its twin's, its library call's
-and its bound), the nvidia-smi line, and last
+Output: a JSON line describing each kernel (its launches on the main path
+and in the cli, rpc, predict and seismic phases, its max abs error against
+its twin, its ms, its twin's, its library call's and its bound), the
+nvidia-smi line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of JAX.
 """
@@ -110,6 +136,36 @@ CLI_FLAGS = ["--ntrain", "10000", "--ntest", "500", "--nblocks", "100", "--lscal
              "--obs_std", "0.02", "--local_dist", "0.1", "--task", "x"]
 CLI_ITERS = 100
 CLI_EDGES = 342  # axis and diagonal neighbors of the 10 x 10 grid
+# The predictive columns of the JAX package's committed flagship artifact,
+# docs/runs/gprf10k_device/results.txt, last line (the trueX row):
+# SMSE local / GPRF, MSLL block local / GPRF, MSLL diagonal local / GPRF.
+# Logged beside the port's; the datasets may differ (the reference draws
+# its data at the process's float width, ROADMAP.md section 3).
+JAX_TRUEX_PREDICTIVE = (0.0122, 0.0125, 2.2083, 1.9625, 2.2054, 1.9916)
+PREDICTIVE_COLS = ("smse_local", "smse", "msll_local_block", "msll_block", "msll_local_diag",
+                   "msll_diag")
+# The float32 predictor on the kernels against the float64 one on the twins,
+# both on the card, at the fit's final X: relative on SMSE, absolute on MSLL
+# (nats).  Measured 1.7e-6 and 9.2e-8 on an H100 80GB HBM3 at 700 W
+# (PERF.md section 6): the limits leave ~60x and ~1000x for another
+# summation order, not for a lost digit
+PREDICT_RTOL_SMSE = 1e-4
+PREDICT_ATOL_MSLL = 1e-4
+# The RPC flagship: the command line's, with --rpc_blocksize 200 in place of
+# --nblocks 100 (the reference publishes no synthetic RPC command; 200 gives
+# blocks as wide as the grid flagship's: 64 blocks of 156-157 points at
+# uniform X, m = 160)
+RPC_BLOCKSIZE = 200
+RPC_FLAGS = CLI_FLAGS[:4] + ["--rpc_blocksize", str(RPC_BLOCKSIZE)] + CLI_FLAGS[6:]
+RPC_SHAPE = {"blocks": 64, "m": 160}
+# points the float32 median replay on the card may place in another block
+# than the float64 host replay, of 10,000.  Where a node's two middle
+# projections lie closer than float32's spacing, a point takes the other
+# side; each node below whose membership that changes moves its own middle
+# point, so one such tie at the root of the 6-level tree moves at most
+# 1 + 2 + ... + 32 = 63 points.  Measured 0 at X_obs and 7 at the fit's
+# final X, from one tie at level 2 (scripts/torch_rpc_replay_float32.py)
+RPC_MAX_MOVED = 63
 HOST_SECONDS = 5
 # The seismic experiment: the command of README.md:47 and docs/RESULTS.md
 # (Seismic), on its recommended device engine with 4 replicas
@@ -260,9 +316,11 @@ def recorded_inputs(holder, evaluate):
     with torch.no_grad():
         evaluate()
     holder.ops = mvn.KERNEL_OPS
-    seen["tri_inv"] = (mvn.mvn_ll_plain(*seen["mvn_ll"])[1],)
-    seen["mvn_ll_inv"] = seen["mvn_ll"]
-    seen["cholesky"] = seen["chol_inv"]
+    if "mvn_ll" in seen:
+        seen["tri_inv"] = (mvn.mvn_ll_plain(*seen["mvn_ll"])[1],)
+        seen["mvn_ll_inv"] = seen["mvn_ll"]
+    if "chol_inv" in seen:
+        seen.setdefault("cholesky", seen["chol_inv"])
     return seen
 
 
@@ -736,14 +794,220 @@ def run_cli(base, cases, torch):
                                  flagship_inputs(fused, data.X_obs.reshape(-1), torch), cases, torch)
     if kernels["mvn_ll"]["shape"] != [E, m, m, DY] or kernels["tri_inv"]["shape"] != [E, m, m]:
         raise AssertionError(f"cli path kernels were held at {kernels['mvn_ll']['shape']}")
-    return dict(kernels=kernels, dir_files=files, iterations=len(steps), objective=[float(values[0]),
+    return dict(kernels=kernels, dir=d, dir_files=files, iterations=len(steps), objective=[float(values[0]),
                 float(values[-1])], true_x_objective=float(true_row["mll"]),
                 mad=[mad_first, mad_last], seconds=seconds, launches=launches, edges=E, m=m,
                 device_busy_ms=busy, device_launches=n_launch, eval_ms=eval_ms), data
 
 
+def run_predict(d, data, cases, torch):
+    """Phase 7: --analyze --analyze_full on the cli phase's run directory
+    (the reference's re-analysis workflow: no new fit)."""
+    from gprf_torch.analysis.results import load_final_results, load_results
+    from gprf_torch.cli import gprfopt
+    from gprf_torch.model.predict import train_block_predictor
+    from gprf_torch.ops import mvn
+
+    argv = CLI_FLAGS + ["--engine", "device", "--analyze", "--analyze_full"]
+    torch.cuda.synchronize()
+    mvn.reset_launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        seconds = gprfopt.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(mvn.launch_counts)
+    rows = load_results(d)[:, 6:]
+    true_row = load_final_results(d)[1]
+    true_cols = [true_row[k] for k in PREDICTIVE_COLS]
+    log(f"predict (--analyze --analyze_full, {len(rows)} rows): final row "
+        f"{dict(zip(PREDICTIVE_COLS, rows[-1].tolist()))}; trueX row "
+        f"{dict(zip(PREDICTIVE_COLS, true_cols))}, the JAX package's artifact's trueX row "
+        f"(docs/runs/gprf10k_device/results.txt) {dict(zip(PREDICTIVE_COLS, JAX_TRUEX_PREDICTIVE))}"
+        f"; analysis {seconds['analyze_s']:.2f} s; launches {launches}")
+    table = np.vstack([rows, [true_cols]])
+    if not (np.isfinite(table).all() and (table != 0).all()):
+        raise AssertionError(f"predictive columns not finite and non-zero: {table}")
+    # K5 for the block caches, K1 and K2 for the trueX objective (no gradient: no K3)
+    check_launches("the predictive analysis", launches, ("cholesky", "chol_inv", "mvn_ll"),
+                   ("mvn_ll_inv", "tri_inv"))
+
+    # the final X of the fit: K5 on the block caches it gives the predictor,
+    # the float32 predictor against the float64 twins, the exact GP, and the
+    # parts of one prediction_error
+    last = max(f for f in os.listdir(d) if f.startswith("step_") and f.endswith("_X.npy"))
+    X_final = np.load(os.path.join(d, last))
+    gprf = data.build_gprf(X=X_final, local_dist=0.1, device="cuda", dtype=torch.float32)
+    inputs = recorded_inputs(gprf, lambda: train_block_predictor(gprf))
+    k5 = dict(shape=list(inputs["cholesky"][0].shape),
+              **compare(cases["cholesky"], inputs["cholesky"], torch,
+                        what="predictor block caches: "))
+    if k5["shape"] != [NBLOCKS, M0, M0]:
+        raise AssertionError(f"the predictor's block caches are {k5['shape']}")
+    scores = {}
+    for name, dtype, ops in (("float32", torch.float32, mvn.KERNEL_OPS),
+                             ("float64", torch.float64, mvn.PLAIN_OPS)):
+        scores[name] = data.prediction_error(X=X_final, local_dist=0.1, device="cuda",
+                                             dtype=dtype, ops=ops)
+    scores = {k: [float(v) for v in scores[k]] for k in scores}
+    (s32, b32, d32), (s64, b64, d64) = scores["float32"], scores["float64"]
+    smse_rel = abs(s32 - s64) / abs(s64)
+    msll_abs = max(abs(b32 - b64), abs(d32 - d64))
+    log(f"predictor at the final X ({last}): float32 on the kernels (SMSE, MSLL block, MSLL "
+        f"diagonal) {scores['float32']}, float64 on the twins {scores['float64']}; SMSE rel "
+        f"{smse_rel:.3e} (limit {PREDICT_RTOL_SMSE}), MSLL abs {msll_abs:.3e} (limit "
+        f"{PREDICT_ATOL_MSLL})")
+    if not (smse_rel <= PREDICT_RTOL_SMSE and msll_abs <= PREDICT_ATOL_MSLL):
+        raise AssertionError(f"float32 predictor disagrees with float64: {scores}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gp_ll = data.prediction_error_gp(X_final.reshape(-1), device="cuda", dtype=torch.float64)
+    gp_s = time.perf_counter() - t0
+    log(f"prediction_error_gp at the final X: {gp_ll:.4f} in {gp_s:.2f} s (float64 on the card)")
+    if not np.isfinite(gp_ll):
+        raise AssertionError(f"prediction_error_gp is {gp_ll}")
+
+    parts = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gprf = data.build_gprf(X=X_final, local_dist=0.1, device="cuda", dtype=torch.float32)
+    test_blocks = data.reblock(data.Xtest)
+    torch.cuda.synchronize()
+    parts["build_gprf_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    predict_blocks = train_block_predictor(gprf)
+    torch.cuda.synchronize()
+    parts["block_caches_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = predict_blocks(test_blocks, data.Xtest, test_noise_var=data.noise_var)
+    parts["combination_s"] = time.perf_counter() - t0  # ends in the copy to the host
+    t0 = time.perf_counter()
+    data.score_predictions(test_blocks, results)
+    parts["host_loop_s"] = time.perf_counter() - t0
+    log(f"one prediction_error, float32 on the card, in parts (s): {parts}")
+    return dict(rows=len(rows), final=rows[-1].tolist(), true_x=true_cols,
+                jax_artifact_true_x=list(JAX_TRUEX_PREDICTIVE), seconds=seconds,
+                launches=launches, block_caches_kernel=k5, float32=scores["float32"],
+                float64=scores["float64"], smse_rel=smse_rel, msll_abs=msll_abs,
+                gp_ll=gp_ll, gp_s=gp_s, parts=parts)
+
+
+def run_rpc(base, cases, torch):
+    """Phase 8: the command line's flagship over an RPC partition
+    (--rpc_blocksize 200) on the device engine."""
+    import io
+
+    from gprf_torch.analysis.results import load_final_results, load_results
+    from gprf_torch.bench import device_busy
+    from gprf_torch.cli import gprfopt
+    from gprf_torch.data.sampled import sample_data
+    from gprf_torch.model.fused import FusedSyntheticGPRF
+    from gprf_torch.ops import mvn
+
+    argv = RPC_FLAGS + ["--engine", "device", "--max_iters", str(CLI_ITERS)]
+    d = gprfopt.exp_dir(gprfopt.build_parser().parse_args(argv))
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    mvn.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        seconds = gprfopt.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(mvn.launch_counts)
+    sys.stderr.write(out.getvalue())
+    reported = next(line for line in out.getvalue().splitlines()
+                    if line.startswith("device engine: B = "))
+    B, E, m_end = (int(w) for w in reported.replace(",", " ").split() if w.isdigit())
+    files = sorted(os.listdir(d))
+    wanted = ["log.txt", "optimizer_state.npz", "results.txt", "finished",
+              "step_%05d_X.npy" % (CLI_ITERS - 1)]
+    if [f for f in wanted if f not in files]:
+        raise AssertionError(f"rpc run left {files}; want {wanted}")
+    steps, values = read_log(d)
+    results = load_results(d)
+    final, true_row = load_final_results(d)
+    mad_first, mad_last = float(results[0, 4]), float(final["mad"])
+    log(f"rpc (device engine, block size {RPC_BLOCKSIZE}): engine reports B={B}, E={E}, final "
+        f"m={m_end}; {len(steps)} iterations; objective {values[0]:.2f} -> {values[-1]:.2f}, at "
+        f"the true X {true_row['mll']:.2f}; mad {mad_first:.8f} -> {mad_last:.8f}; seconds: "
+        f"sampling {seconds['sample_s']:.2f}, fitting {seconds['fit_s']:.2f}, analysis "
+        f"{seconds['analyze_s']:.2f}; launches {launches}")
+    if list(steps) != list(range(CLI_ITERS)):
+        raise AssertionError(f"rpc run logged steps {steps[0]}..{steps[-1]} ({len(steps)})")
+    if not (values[-1] > values[0] and mad_last < mad_first and np.isfinite(true_row["mll"])):
+        raise AssertionError(f"rpc run: objective {values[0]} -> {values[-1]}, mad {mad_first} "
+                             f"-> {mad_last}, trueX objective {true_row['mll']}")
+    check_launches("the rpc run", launches, ("chol_inv", "mvn_ll", "tri_inv"),
+                   ("mvn_ll_inv", "cholesky"))
+
+    # the host's partition of the same data: B, E and m against the engine's
+    data = sample_data(n=10500, ntrain=10000, lscale=0.06, obs_std=0.02, yd=DY, seed=0,
+                       centers=None, noise_var=NOISE_VAR, rpc_blocksize=RPC_BLOCKSIZE)
+    gprf = data.build_gprf(local_dist=0.1, device="cuda", dtype=torch.float32)
+    fused = FusedSyntheticGPRF(data.X_obs, data.SY, gprf.neighbors, data.X_obs, data.obs_std,
+                               data.cov, data.noise_var, task="x", rpc_tree=data.rpc_splits,
+                               device="cuda", dtype=torch.float32, acc_dtype=torch.float64)
+    host_m = (max(len(b) for b in data.block_idxs) + 7) // 8 * 8
+    shape = {"blocks": len(data.block_idxs), "m": host_m}
+    if shape != RPC_SHAPE or (B, E) != (shape["blocks"], len(gprf.neighbors)) or not (
+            fused.m == host_m <= m_end):
+        raise AssertionError(f"rpc partition: engine B={B}, E={E}, m {fused.m} -> {m_end}; host "
+                             f"{shape}, E={len(gprf.neighbors)}; want {RPC_SHAPE}")
+
+    # the median replay on the card against the float64 host replay
+    def labels(blocks):
+        lab = np.empty(len(data.X_obs), dtype=np.int64)
+        for b, ix in enumerate(blocks):
+            lab[ix] = b
+        return lab
+
+    X_final = np.load(os.path.join(d, "step_%05d_X.npy" % (CLI_ITERS - 1)))
+    moved = {}
+    for name, X in (("X_obs", data.X_obs), ("X_final", X_final)):
+        moved[name] = int(np.sum(fused._assign_host(X) != labels(data.reblock(X))))
+    log(f"rpc median replay, float32 on the card against float64 on the host: points in another "
+        f"block {moved} of {len(data.X_obs)} (limit {RPC_MAX_MOVED})")
+    if max(moved.values()) > RPC_MAX_MOVED:
+        raise AssertionError(f"rpc replay moved {moved} points")
+
+    # K1-K3 on this path's own inputs
+    x_obs = data.X_obs.reshape(-1)
+    kernels = check_path_kernels(f"rpc path, B={B}, E={E}, m={fused.m}",
+                                 flagship_inputs(fused, x_obs, torch), cases, torch)
+    if kernels["chol_inv"]["shape"] != [B, fused.m, fused.m] or \
+            kernels["mvn_ll"]["shape"] != [E, fused.m, fused.m, DY]:
+        raise AssertionError(f"rpc path kernels were held at {kernels}")
+
+    # one folded loss at R = 2 against the two single-replica losses
+    rng = np.random.default_rng(3)
+    thetas = torch.as_tensor(np.stack([x_obs, x_obs + rng.standard_normal(x_obs.shape) * OBS_STD]),
+                             dtype=torch.float32, device="cuda")
+    loss = fused.loss_fn()
+    with torch.no_grad():
+        folded = loss(thetas).double()
+        single = torch.stack([loss(t) for t in thetas]).double()
+        both = fused._assign_device(thetas.reshape(2, -1, 2))
+        alone = torch.stack([fused._assign_device(t.reshape(-1, 2)) for t in thetas])
+    fold_rel = float(((folded - single).abs() / single.abs()).max())
+    same_labels = bool(torch.equal(both, alone))
+    log(f"rpc folded loss, R=2: rel {fold_rel:.3e} to the single losses, labels equal "
+        f"{same_labels}")
+    if not (fold_rel <= RTOL_LOSS and same_labels):
+        raise AssertionError(f"rpc folded loss: rel {fold_rel}, labels equal {same_labels}")
+
+    x0 = thetas[0]
+    busy, n_launch = device_busy(loss, x0)
+    (eval_ms,) = eval_ms_in_turns([loss], x0, torch)
+    log(f"rpc shapes: one loss+grad: device busy {busy:.3f} ms ({n_launch:.0f} launches), host "
+        f"clock {eval_ms:.3f} ms (median of 20)")
+    return dict(kernels=kernels, blocks=B, edges=E, m=fused.m, m_end=m_end, dir_files=files,
+                iterations=len(steps), objective=[float(values[0]), float(values[-1])],
+                true_x_objective=float(true_row["mll"]), mad=[mad_first, mad_last],
+                seconds=seconds, ms_per_iteration=seconds["fit_s"] / len(steps) * 1e3,
+                launches=launches, replay_moved=moved, folded_rel=fold_rel,
+                device_busy_ms=busy, device_launches=n_launch, eval_ms=eval_ms)
+
+
 def run_host(base, data, cases, torch):
-    """Phase 7: the host engine on the same data (its cache copied into a
+    """Phase 9: the host engine on the same data (its cache copied into a
     base of its own: the run directory's name does not tell the engine), and
     GPRF.update_X across a change of m."""
     from gprf_torch.cli import gprfopt
@@ -817,7 +1081,7 @@ def run_host(base, data, cases, torch):
 
 
 def run_resume(base, data, torch):
-    """Phase 8: stop a device-engine run after two dispatches, resume it
+    """Phase 10: stop a device-engine run after two dispatches, resume it
     from optimizer_state.npz, and read log.txt's step indices."""
     from gprf_torch.optim.lbfgs import do_optimization_fused
 
@@ -841,7 +1105,7 @@ def run_resume(base, data, torch):
 
 
 def check_multistart(fused, x_flat, torch):
-    """Phase 10: the bench's problem from MULTISTART_REPLICAS starts (the
+    """Phase 12: the bench's problem from MULTISTART_REPLICAS starts (the
     observed X and perturbations at the observation prior's scale), the
     replica-batched runner against the single-start runner from each start."""
     from gprf_torch.ops import mvn
@@ -885,7 +1149,7 @@ def read_seismic_results(d):
 
 
 def run_seismic_device(base, cases, torch):
-    """Phase 11: the seismic command on the device engine with replicas."""
+    """Phase 13: the seismic command on the device engine with replicas."""
     from gprf_torch.bench import device_busy, splits_at
     from gprf_torch.cli import run_seismic
     from gprf_torch.ops import mvn
@@ -963,7 +1227,7 @@ def run_seismic_device(base, cases, torch):
 
 
 def run_seismic_host(base, data, torch):
-    """Phase 12: the seismic command on the host engine, on the same data."""
+    """Phase 14: the seismic command on the host engine, on the same data."""
     from gprf_torch.cli import run_seismic
     from gprf_torch.ops import mvn
 
@@ -1039,6 +1303,8 @@ def main():
     try:
         with tempfile.TemporaryDirectory() as base, tempfile.TemporaryDirectory() as host_base:
             cli, data = run_cli(base, cases, torch)
+            predict = run_predict(cli["dir"], data, cases, torch)
+            rpc = run_rpc(base, cases, torch)
             host = run_host(host_base, data, cases, torch)
             resume = run_resume(host_base, data, torch)
         with tempfile.TemporaryDirectory() as base:
@@ -1053,9 +1319,14 @@ def main():
     for name in report:
         report[name]["cli_launches"] = cli["launches"][name]
         report[name]["seismic_launches"] = seismic["launches"][name]
-        if name in cli["kernels"]:  # the same kernel at the command line's and seismic shapes
+        report[name]["rpc_launches"] = rpc["launches"][name]
+        report[name]["predict_launches"] = predict["launches"][name]
+        if name in cli["kernels"]:  # the same kernel at the command line's, RPC and seismic shapes
             report[name]["cli"] = cli["kernels"][name]
+            report[name]["rpc"] = rpc["kernels"][name]
             report[name]["seismic"] = {r: seismic[r]["kernels"][name] for r in SEISMIC_R}
+    report["cholesky"]["predict"] = predict.pop("block_caches_kernel")
+    del rpc["kernels"]
     for r in SEISMIC_R:
         del seismic[r]["kernels"]
     bench_record = bench.run(dev, log=log)
@@ -1064,7 +1335,8 @@ def main():
     print(json.dumps({
         "kernels": list(report.values()),
         "slice": {"n": N, "blocks": NBLOCKS, "m": M0, "edges": bench_edges, "dy": DY, "routes": routes,
-                  "cli": cli, "host": host, "resume": resume, "bench": bench_record,
+                  "cli": cli, "predict": predict, "rpc": rpc, "host": host, "resume": resume,
+                  "bench": bench_record,
                   "multistart": multistart, "seismic": seismic, "seismic_host": seismic_host},
     }))
     print(smi)

@@ -40,11 +40,11 @@ def analyze_run(d, sdata, local_dist=1.0, predict=False, X0=None, *,
 
     ``X0`` is the run's actual initial or pinned latents, the fallback when
     a row has no X checkpoint (task=cov runs pin X at the true latents and
-    never checkpoint X).  The ``trueX`` row's objective is evaluated on
-    ``device`` at ``dtype``, the run's own; an error there is raised."""
-    if predict:
-        raise NotImplementedError("predictive metrics are not ported yet (ROADMAP, still to "
-                                  "port: model/predict.py)")
+    never checkpoint X).  ``predict`` fills the six predictive columns
+    (:meth:`~gprf_torch.data.sampled.SampledData.prediction_error`, for the
+    local GPs and, where ``local_dist < 1``, the GPRF); without it they are
+    zeros.  The ``trueX`` row's objective and the predictions are evaluated
+    on ``device`` at ``dtype``, the run's own; an error there is raised."""
     steps, times, lls = load_log(d)
     rfname = os.path.join(d, "results.txt")
 
@@ -52,7 +52,16 @@ def analyze_run(d, sdata, local_dist=1.0, predict=False, X0=None, *,
         l1 = sdata.mean_distance(X.flatten())
         c1 = sdata.lscale_error(FC) if FC is not None else 0.0
         l2 = sdata.x_prior(X.flatten())[0]
-        return (c1, l1, l2) + (0.0,) * 6
+        if not predict:
+            return (c1, l1, l2) + (0.0,) * 6
+        smse_local, mlb_local, mld_local = sdata.prediction_error(
+            X=X, cov=FC, local_dist=1.0, device=device, dtype=dtype)
+        if local_dist < 1.0:
+            smse, mlb, mld = sdata.prediction_error(X=X, cov=FC, local_dist=local_dist,
+                                                    device=device, dtype=dtype)
+        else:
+            smse, mlb, mld = smse_local, mlb_local, mld_local
+        return c1, l1, l2, smse_local, smse, mlb_local, mlb, mld_local, mld
 
     # the device loop checkpoints once per dispatch while log.txt has a row
     # per iteration: rows between checkpoints carry the last checkpointed

@@ -7,10 +7,14 @@ The reference's flags, run-directory naming (``build_run_name``: the name
 encodes the configuration and doubles as the cache key) and ``do_run``
 orchestration, plus ``--device`` (default ``cuda``; without a CUDA device
 the default raises, and only ``--device cpu`` runs on the CPU).  Served:
-both engines, tasks x / cov / xcov, grid partitions, ``--init_x``,
-``--init_true``, ``--init_seed``, ``--analyze``, ``--multistart`` (device
-engine; the host engine ignores it, as the reference's does).  What is not ported yet is
-refused with a message (:func:`refuse_unported`).
+both engines, tasks x / cov / xcov, grid partitions (``--nblocks``) and RPC
+partitions (``--rpc_blocksize``: the host engine replays the splits on the
+host, the device engine on the card), ``--init_x``, ``--init_true``,
+``--init_seed``, ``--analyze``, ``--analyze_full`` (the predictive columns
+of results.txt; under an RPC partition it raises IndexError, as the
+reference's does), ``--multistart`` (device engine; the host engine ignores
+it, as the reference's does).  What is not ported yet is refused with a
+message (:func:`refuse_unported`).
 """
 
 from __future__ import annotations
@@ -36,14 +40,11 @@ from gprf_torch.utils.device import resolve_device
 from gprf_torch.utils.io import mkdir_p
 
 
-def refuse_unported(rpc_blocksize=-1, gplvm_type="gprf", refine_iters=0, analyze_full=False,
-                    schur_precision=""):
+def refuse_unported(gplvm_type="gprf", refine_iters=0, schur_precision=""):
     """Raise for an option of the reference that the port does not serve."""
     pending = [
-        (rpc_blocksize != -1, "--rpc_blocksize: RPC partitions (partition/rpc.py)"),
         (gplvm_type != "gprf", "--gplvm_type other than gprf: the GPLVM baselines (model/sgplvm.py)"),
         (refine_iters > 0, "--refine_iters > 0: the float64 refinement phase (refine_f64)"),
-        (analyze_full, "--analyze_full: predictive metrics (model/predict.py)"),
     ]
     for hit, what in pending:
         if hit:
@@ -65,16 +66,20 @@ def do_run(d, lscale, n, ntrain, nblocks, yd, seed=0, method="l-bfgs-b", obs_std
     where and at which width the objective runs; ``mvn_inv`` and
     ``unary_doubling`` pick a route of the device engine's objective.
     Returns the seconds spent sampling, fitting and analyzing."""
-    refuse_unported(rpc_blocksize, gplvm_type, refine_iters, analyze_full)
+    refuse_unported(gplvm_type, refine_iters)
     device = resolve_device(device)
-    centers = grid_centers(nblocks)
-    print("gprf with %d blocks" % len(centers))
+    if rpc_blocksize == -1:
+        centers = grid_centers(nblocks)
+        print("gprf with %d blocks" % len(centers))
+    else:
+        centers = None
+        print("gprf with rpc blocksize %d" % rpc_blocksize)
     if obs_std is None:
         obs_std = lscale / 10
 
     t0 = time.time()
     data = sample_data(n=n, ntrain=ntrain, lscale=lscale, obs_std=obs_std, yd=yd, seed=seed,
-                       centers=centers, noise_var=noise_var)
+                       centers=centers, noise_var=noise_var, rpc_blocksize=rpc_blocksize)
     seconds = {"sample_s": time.time() - t0}
     gprf = data.build_gprf(local_dist=local_dist, device=device, dtype=dtype)
 
@@ -119,12 +124,16 @@ def do_run(d, lscale, n, ntrain, nblocks, yd, seed=0, method="l-bfgs-b", obs_std
     if not analyze_only:
         if engine == "device":
             # float64 accumulation of the objective's scalar tails (the
-            # factorizations stay at dtype), as the reference's CLI runs it
+            # factorizations stay at dtype), as the reference's CLI runs it;
+            # the partition the host path built: the grid centers, or the
+            # RPC split tree, replayed on the device
+            part = (dict(centers=np.asarray(centers)) if centers is not None
+                    else dict(rpc_tree=data.rpc_splits))
             fused = FusedSyntheticGPRF(
                 data.SX if task == "cov" else X0, data.SY, gprf.neighbors, data.X_obs,
-                data.obs_std, gprf.cov, gprf.noise_var, task=task, C0=C0,
-                centers=np.asarray(centers), device=device, dtype=dtype,
-                acc_dtype=torch.float64, mvn_inv=mvn_inv, unary_doubling=unary_doubling)
+                data.obs_std, gprf.cov, gprf.noise_var, task=task, C0=C0, device=device,
+                dtype=dtype, acc_dtype=torch.float64, mvn_inv=mvn_inv,
+                unary_doubling=unary_doubling, **part)
             if max_iters is None:
                 max_iters = 400 if task == "x" else 600
             loop = dict(maxsec=maxsec, max_iters=max_iters, ftol=ftol,
@@ -155,16 +164,16 @@ def do_run(d, lscale, n, ntrain, nblocks, yd, seed=0, method="l-bfgs-b", obs_std
                 do_optimization_fused(d, fused, X0, **loop)
             else:
                 do_optimization_fused_theta(d, fused, fused.theta0(), **loop)
-            print("device engine: E = %d edges, final block capacity m = %d"
-                  % (len(gprf.neighbors), fused.m))
+            print("device engine: B = %d blocks, E = %d edges, final block capacity m = %d"
+                  % (fused.n_blocks, len(gprf.neighbors), fused.m))
         else:
             do_optimization(d, gprf, X0, C0, data, method=method, maxsec=maxsec,
                             parallel=parallel)
     seconds["fit_s"] = time.time() - t0
 
     t0 = time.time()
-    analyze_run(d, data, local_dist=local_dist, X0=(data.SX if task == "cov" else X0),
-                device=device, dtype=dtype)
+    analyze_run(d, data, local_dist=local_dist, predict=analyze_full,
+                X0=(data.SX if task == "cov" else X0), device=device, dtype=dtype)
     seconds["analyze_s"] = time.time() - t0
     print("seconds: sampling %(sample_s).2f, fitting %(fit_s).2f, analysis %(analyze_s).2f"
           % seconds)
@@ -223,7 +232,7 @@ def build_parser():
     add("--ntrain", dest="ntrain", type=int, help="number of points to locate")
     add("--ntest", dest="ntest", type=int, default=500, help="sample additional test points to evaluate predictive accuracy")
     add("--nblocks", dest="nblocks", default=1, type=int, help="divide sampled points into a grid of this many blocks (mutually exclusive with rpc_blocksize)")
-    add("--rpc_blocksize", dest="rpc_blocksize", default=-1, type=int, help="recursive projection clustering with this target blocksize (not ported yet)")
+    add("--rpc_blocksize", dest="rpc_blocksize", default=-1, type=int, help="recursive projection clustering with this target blocksize (mutually exclusive with nblocks)")
     add("--lscale", dest="lscale", type=float, help="SE kernel lengthscale for the sampled functions")
     add("--obs_std", dest="obs_std", type=float, default=None, help="std of Gaussian noise corrupting the X locations")
     add("--local_dist", dest="local_dist", default=1.0, type=float, help="minimum kernel value to connect blocks in a GPRF (1.0 = local GPs)")
@@ -234,7 +243,7 @@ def build_parser():
     add("--max_iters", dest="max_iters", default=None, type=int, help="device engine: max scan-L-BFGS iterations (default 400 for task=x, 600 for cov/xcov)")
     add("--task", dest="task", default="x", type=str, help="'x', 'cov', or 'xcov'")
     add("--analyze", dest="analyze", default=False, action="store_true", help="only analyze existing saved results")
-    add("--analyze_full", dest="analyze_full", default=False, action="store_true", help="fuller analysis incl. predictive accuracy (not ported yet)")
+    add("--analyze_full", dest="analyze_full", default=False, action="store_true", help="fuller analysis incl. predictive accuracy")
     add("--parallel", dest="parallel", default=False, action="store_true", help="accepted for reference parity; the blocks are always batched")
     add("--init_seed", dest="init_seed", default=-1, type=int, help="if >=0, randomized init from this seed")
     add("--init_true", dest="init_true", default=False, action="store_true", help="initialize at true X locations")
@@ -254,8 +263,7 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_unported(args.rpc_blocksize, args.gplvm_type, args.refine_iters, args.analyze_full,
-                    args.schur_precision)
+    refuse_unported(args.gplvm_type, args.refine_iters, args.schur_precision)
     device = resolve_device(args.device)
     mkdir_p(exp_base_dir())
     d = exp_dir(args)

@@ -2,11 +2,13 @@
 (mirror of ``gprf_tpu/data/sampled.py``).
 
 Holds the true latents SX, GP-prior outputs SY, noise-corrupted observed
-locations X_obs, the held-out test split, the grid partition, the isotropic
-Gaussian prior on X and the error metrics.  Datasets cache to disk keyed by
-their generation parameters, under the reference's key, as an ``.npz`` of
-arrays (the reference pickles its own class, which only it can load; this
-package never opens a pickle).
+locations X_obs, the held-out test split, the partition (grid centers, or
+RPC with replayable splits), the isotropic Gaussian prior on X, the error
+metrics and the predictive scores (SMSE and MSLL of the block predictor
+against a mean/std baseline, and the exact GP's test likelihood).  Datasets
+cache to disk keyed by their generation parameters, under the reference's
+key, as an ``.npz`` of arrays (the reference pickles its own class, which
+only it can load; this package never opens a pickle).
 """
 
 from __future__ import annotations
@@ -18,9 +20,12 @@ import torch
 
 from gprf_torch.data.synthetic import sample_synthetic, sampler_suffix
 from gprf_torch.kernels.gpcov import GPCov
+from gprf_torch.model.fullgp import GP
 from gprf_torch.model.gprf import GPRF
+from gprf_torch.model.predict import train_block_predictor
 from gprf_torch.ops.mvn import KERNEL_OPS, Ops
 from gprf_torch.partition.grid import Blocker
+from gprf_torch.partition.rpc import cluster_rpc
 from gprf_torch.utils.io import mkdir_p
 
 _ARRAYS = ("SX", "SY", "Xtest", "Ytest", "X_obs")
@@ -75,9 +80,19 @@ class SampledData:
         self.reblock = b.block_clusters
         self.neighbors = b.neighbors(diag_connections=True)
 
-    def cluster_rpc(self, blocksize):
-        raise NotImplementedError("RPC partitions are not ported yet (ROADMAP, still to port: "
-                                  "partition/rpc.py)")
+    def cluster_rpc(self, blocksize, rng: np.random.RandomState):
+        """The RPC partition of X_obs into blocks of < blocksize points; the
+        split tree stays in ``rpc_splits`` for the device engine's replay,
+        and ``reblock`` replays it on the host.  The replay indexes the
+        ntrain training rows, as the reference's does: on the test split
+        (``prediction_error``) it raises IndexError there and here."""
+        all_idxs = np.arange(self.ntrain)
+        self.block_idxs, splits = cluster_rpc(self.X_obs, all_idxs, target_size=blocksize,
+                                              rng=rng)
+        self.rpc_splits = splits
+        self.reblock = lambda X: cluster_rpc(X, all_idxs, target_size=blocksize,
+                                             fixed_split=splits)[0]
+        self.neighbors = None  # build_gprf discovers the edges at local_dist
 
     def build_gprf(self, X=None, cov=None, local_dist=1e-4, *, device: torch.device | str,
                    dtype: torch.dtype, ops: Ops = KERNEL_OPS):
@@ -142,21 +157,71 @@ class SampledData:
 
     # ----- predictive scoring ----------------------------------------------
 
-    def prediction_error_gp(self, x):
-        raise NotImplementedError("the exact-GP test likelihood is not ported yet (ROADMAP, "
-                                  "still to port: model/fullgp.py)")
+    def prediction_error_gp(self, x, *, device: torch.device | str, dtype: torch.dtype):
+        """The exact GP's test log-likelihood at latents x, summed over the
+        output columns (each column's posterior mean under one shared
+        posterior covariance)."""
+        XX = np.asarray(x).reshape(self.X_obs.shape)
+        ntest = self.n - self.ntrain
+        gp = GP(XX, self.SY, self.cov, self.noise_var, device=device, dtype=dtype)
+        pred_cov = gp.covariance(self.Xtest, include_obs=True)
+        _, logdet = np.linalg.slogdet(pred_cov)
+        pred_prec = np.linalg.inv(pred_cov)
+        R = self.Ytest - gp.predict(self.Xtest).reshape(self.Ytest.shape)  # [ntest, dy]
+        quad = np.einsum("ti,ts,si->i", R, pred_prec, R)
+        lly = -0.5 * quad - 0.5 * logdet - 0.5 * ntest * np.log(2 * np.pi)
+        return float(np.sum(lly))
 
-    def prediction_error(self, X=None, cov=None, local_dist=1.0):
-        raise NotImplementedError("block-predictive scoring is not ported yet (ROADMAP, still "
-                                  "to port: model/predict.py)")
+    def prediction_error(self, X=None, cov=None, local_dist=1.0, *, device: torch.device | str,
+                         dtype: torch.dtype, ops: Ops = KERNEL_OPS):
+        """(SMSE, MSLL_block, MSLL_diag) of the BCM predictor on the test
+        split against the mean/std baseline, on ``device`` at ``dtype``."""
+        gprf = self.build_gprf(X=X, cov=cov, local_dist=local_dist, device=device, dtype=dtype,
+                               ops=ops)
+        test_blocks = self.reblock(self.Xtest)
+        predict_blocks = train_block_predictor(gprf)
+        results = predict_blocks(test_blocks, self.Xtest, test_noise_var=self.noise_var)
+        return self.score_predictions(test_blocks, results)
+
+    def score_predictions(self, test_blocks, results):
+        """(SMSE, MSLL_block, MSLL_diag) of per-test-block predictions
+        {block: (mean, cov)}, on the host in float64."""
+        def gaussian_ll(Y, M, C):
+            ntest, yd = Y.shape
+            P = np.linalg.inv(C)
+            R = Y - M
+            ll = -0.5 * np.sum(P * (R @ R.T))
+            ll -= 0.5 * yd * np.linalg.slogdet(C)[1]
+            ll -= 0.5 * yd * ntest * np.log(2 * np.pi)
+            return ll
+
+        ll_block = ll_block_diag = se_block = 0.0
+        for t, idxs in enumerate(test_blocks):
+            if len(idxs) == 0:
+                continue
+            Yt = self.Ytest[idxs]
+            PM, PC = results[t]
+            ll_block += gaussian_ll(Yt, PM, PC)
+            ll_block_diag += gaussian_ll(Yt, PM, np.diag(np.diag(PC)))
+            se_block += np.sum((Yt - PM) ** 2)
+
+        ntest, yd = self.Ytest.shape
+        Ymean = np.mean(self.SY, axis=0)
+        smse = se_block / np.sum((self.Ytest - Ymean) ** 2)
+        Ystd = np.std(self.SY, axis=0)
+        ll_baseline = np.sum([np.sum(-0.5 * ((self.Ytest[:, i] - Ymean[i]) / Ystd[i]) ** 2
+                                     - 0.5 * np.log(2 * np.pi * Ystd[i] ** 2))
+                              for i in range(yd)])
+        mll_baseline = ll_baseline / (ntest * yd)
+        return (smse, ll_block / (ntest * yd) - mll_baseline,
+                ll_block_diag / (ntest * yd) - mll_baseline)
 
 
 def sample_data(n, ntrain, lscale, obs_std, yd, seed, centers, noise_var, rpc_blocksize=-1):
     """The dataset of these generation parameters, from its cache file under
-    ``$GPRF_EXPERIMENTS/synthetic_datasets`` or sampled and cached."""
-    if centers is None:
-        raise NotImplementedError("RPC partitions are not ported yet (ROADMAP, still to port: "
-                                  "partition/rpc.py)")
+    ``$GPRF_EXPERIMENTS/synthetic_datasets`` or sampled and cached, with its
+    grid partition (``centers``) or, for ``centers=None``, its RPC
+    partition of ``rpc_blocksize`` drawn from a stream seeded ``seed``."""
     sample_basedir = os.path.join(exp_base_dir(), "synthetic_datasets")
     mkdir_p(sample_basedir)
     # the reference's key with another extension: its .pkl holds an object
@@ -174,5 +239,8 @@ def sample_data(n, ntrain, lscale, obs_std, yd, seed, centers, noise_var, rpc_bl
                             yd=yd, noise_var=noise_var)
         np.savez(path, cov_row=sdata.cov_row(), lscale=sdata.lscale, obs_std=sdata.obs_std,
                  **{k: getattr(sdata, k) for k in _ARRAYS})
-    sdata.set_centers(centers)
+    if centers is not None:
+        sdata.set_centers(centers)
+    else:
+        sdata.cluster_rpc(rpc_blocksize, rng=np.random.RandomState(seed))
     return sdata

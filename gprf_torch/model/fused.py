@@ -28,6 +28,7 @@ import torch
 from gprf_torch.kernels.gpcov import GPCov
 from gprf_torch.model.objective import GPRFParams, gprf_ll_schur
 from gprf_torch.ops.mvn import KERNEL_OPS, Ops
+from gprf_torch.partition.rpc_device import FlatRPCTree, assign_blocks_rpc
 
 
 def assemble_layout(blocks, B: int, m: int):
@@ -73,7 +74,9 @@ def stacked_layout(blocks, B: int, m: int):
 
 class FusedSyntheticGPRF:
     """Fused synthetic GPRF evaluation for tasks x / cov / xcov over a grid
-    partition.
+    partition (``centers``) or an RPC partition (``rpc_tree``, the split
+    tree of :func:`gprf_torch.partition.rpc.cluster_rpc`, replayed on the
+    device with the median recomputed at every node).
 
     theta layout: [X.flatten()] (tasks x, xcov) ++ [log(C).flatten() *
     cov_scale] (tasks cov, xcov), with ``cov_scale = 5`` and the
@@ -98,10 +101,8 @@ class FusedSyntheticGPRF:
                  ops: Ops = KERNEL_OPS, mvn_inv: bool = False, unary_doubling: bool = False):
         if task not in ("x", "cov", "xcov"):
             raise ValueError(f"unknown task {task!r}")
-        if rpc_tree is not None:
-            raise NotImplementedError("RPC partitions are not ported yet")
-        if centers is None:
-            raise ValueError("centers select the grid partition")
+        if (centers is None) == (rpc_tree is None):
+            raise ValueError("exactly one of centers / rpc_tree selects the partition")
         self.task = task
         self.device = torch.device(device)
         self.dtype = dtype
@@ -112,8 +113,16 @@ class FusedSyntheticGPRF:
         self.Y = torch.tensor(np.asarray(Y), dtype=dtype, device=device)
         self.X0 = np.asarray(X0, dtype=np.float64)
         self.shape = self.X0.shape
-        self.centers = torch.tensor(np.asarray(centers), dtype=dtype, device=device)
-        B = len(centers)
+        if centers is not None:
+            self.kind = "grid"
+            self.centers = torch.tensor(np.asarray(centers), dtype=dtype, device=device)
+            B = len(centers)
+        else:
+            self.kind = "rpc"
+            self.centers = None
+            self._rpc = FlatRPCTree(rpc_tree, d=self.shape[1])
+            self.rpc_arrays = self._rpc.device_arrays(device=device, dtype=dtype)
+            B = self._rpc.n_blocks
         self.n_blocks = B
 
         edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
@@ -139,8 +148,10 @@ class FusedSyntheticGPRF:
     # ---- partition ---------------------------------------------------------
 
     def _assign_device(self, X):
-        """Per-point nearest-center labels [..., n] of X [..., n, dx]
-        (piecewise constant in X)."""
+        """Per-point block labels [..., n] of X [..., n, dx] (piecewise
+        constant in X): the nearest center, or the RPC median replay."""
+        if self.kind == "rpc":
+            return assign_blocks_rpc(X, self.rpc_arrays, self._rpc.depth, self._rpc.n_nodes)
         c = self.centers
         scores = -2.0 * (X @ c.T) + torch.sum(c * c, dim=1)
         return torch.argmin(scores, dim=-1)

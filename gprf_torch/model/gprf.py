@@ -2,7 +2,8 @@
 ``gprf_tpu/model/gprf.py``).
 
 ``llgrad``, ``update_X``, ``update_covs``, ``compute_neighbors``,
-``subset_llgrad``, ``llgrad_unary`` / ``llgrad_joint`` keep the reference's
+``subset_llgrad``, ``llgrad_unary`` / ``llgrad_joint`` and
+``train_predictor`` keep the reference's
 contracts, so the optimization driver and the analysis translate
 one-to-one.  All compute is the batched Schur-form objective
 (:mod:`gprf_torch.model.objective`) over a padded
@@ -23,6 +24,7 @@ import torch
 from gprf_torch.kernels.gpcov import GPCov
 from gprf_torch.model.neighbors import compute_neighbors as _compute_neighbors
 from gprf_torch.model.objective import GPRFParams, gprf_value_and_grad_schur
+from gprf_torch.model.predict import train_predictor
 from gprf_torch.ops.mvn import KERNEL_OPS, Ops
 from gprf_torch.partition.layout import BlockLayout
 
@@ -221,5 +223,6 @@ class GPRF:
         return ll, gX, gC.reshape(-1)
 
     def train_predictor(self, test_cov=None, Y=None):
-        raise NotImplementedError("prediction is not ported yet (ROADMAP, still to port: "
-                                  "model/predict.py)")
+        """The BCM predictor over this model's blocks, trained at the
+        current X (:func:`gprf_torch.model.predict.train_predictor`)."""
+        return train_predictor(self, test_cov=test_cov, Y=Y)

@@ -175,8 +175,14 @@ def test_analyze_run_matches_jax_on_one_run_directory(exp):
                 analyze_only=True, **SMALL)
     with open(d / "results.txt") as f:
         assert f.read().splitlines() == ours
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tresults.analyze_run(str(d), None, predict=True, device="cpu", dtype=torch.float64)
+    # --analyze --analyze_full: the same rows with the six predictive columns filled
+    tcli.do_run(str(d), device="cpu", dtype=torch.float64, engine="device", task="xcov",
+                analyze_only=True, analyze_full=True, **SMALL)
+    with open(d / "results.txt") as f:
+        full = f.read().splitlines()
+    for a, b in zip(full, ours):
+        assert a.split()[:6] == b.split()[:6] and set(b.split()[6:]) == {"0.0000"}
+        assert all(float(v) != 0.0 for v in a.split()[6:])
 
 
 def test_results_readers_match_jax(tmp_path):
@@ -212,6 +218,43 @@ def test_command_line_on_the_cpu_writes_a_whole_run(exp, capsys, engine):
     assert len(steps) >= 10 and np.isfinite(values).all() and values.max() > values[0]
     final, true_row = tresults.load_final_results(str(exp / name))
     assert np.isfinite(true_row["mll"]) and final["mad"] < 0.0126  # X_obs starts at ~0.0125
+
+
+@pytest.mark.parametrize("engine,task,extra", [
+    ("host", "x", {}), ("device", "x", dict(max_iters=20)),
+    ("device", "x", dict(max_iters=10, multistart=2)), ("device", "cov", dict(max_iters=10)),
+    ("device", "xcov", dict(max_iters=10))])
+def test_rpc_run_matches_jax(exp, monkeypatch, few_scipy_iterations, engine, task, extra):
+    """An RPC partition (400 points at block size 60: 8 blocks of 50) on
+    either engine: the host engine replays the splits on the host, the
+    device engine on the device."""
+    args = {k: v for k, v in SMALL.items() if k != "nblocks"}
+    dt, dj = _both_runs(exp, monkeypatch, engine, task, rpc_blocksize=60, nblocks=1, **args,
+                        **extra)
+    (ts, tv), (js, jv) = _log(dt), _log(dj)
+    rows = min(10, len(ts))
+    assert rows >= 3 and list(ts[:rows]) == list(js[:rows])
+    np.testing.assert_allclose(tv[:rows], jv[:rows], rtol=RTOL, atol=LOG_ATOL)
+    assert tv[:rows].max() > tv[0]
+    _assert_same_results(dt, dj, rows)
+    if "multistart" in extra:
+        assert os.path.exists(os.path.join(dt, "multistart.txt"))
+
+
+@pytest.mark.parametrize("engine", ["host", "device"])
+def test_analyze_full_run_matches_jax(exp, monkeypatch, few_scipy_iterations, engine):
+    """--analyze_full: results.txt's six predictive columns, logged values
+    held at rtol 1e-6 (and one printed unit)."""
+    dt, dj = _both_runs(exp, monkeypatch, engine, "x", analyze_full=True, max_iters=20)
+    t, j = tresults.load_results(dt), tresults.load_results(dj)
+    rows = min(10, len(t))
+    np.testing.assert_allclose(t[:rows, 6:], j[:rows, 6:], rtol=RTOL, atol=1.1e-4)
+    with open(os.path.join(dt, "results.txt")) as f:
+        t_true = [float(v) for v in f.readlines()[-1].split()[6:]]
+    with open(os.path.join(dj, "results.txt")) as f:
+        j_true = [float(v) for v in f.readlines()[-1].split()[6:]]
+    np.testing.assert_allclose(t_true, j_true, rtol=RTOL, atol=1.1e-4)
+    assert all(v != 0.0 for v in t_true) and 0 < t_true[1] < 1  # SMSE below the mean's
 
 
 FLAG_SETS = [
@@ -253,11 +296,9 @@ def test_parser_has_the_references_flags_and_device():
 
 
 @pytest.mark.parametrize("flags,error", [
-    (["--rpc_blocksize", "100"], NotImplementedError),
     (["--gplvm_type", "sparse"], NotImplementedError),
     (["--multistart", "4", "--engine", "device", "--refine_iters", "3"], NotImplementedError),
     (["--refine_iters", "10", "--engine", "device"], NotImplementedError),
-    (["--analyze_full"], NotImplementedError),
     (["--schur_precision", "high"], ValueError),
 ])
 def test_refused_flags_raise_before_anything_runs(exp, flags, error):
@@ -268,8 +309,7 @@ def test_refused_flags_raise_before_anything_runs(exp, flags, error):
 
 
 def test_do_run_refuses_what_the_command_line_refuses(exp):
-    for option in (dict(rpc_blocksize=100), dict(gplvm_type="bayesian"), dict(refine_iters=5),
-                   dict(analyze_full=True)):
+    for option in (dict(gplvm_type="bayesian"), dict(refine_iters=5)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tcli.do_run(str(exp), device="cpu", **SMALL, **option)
     with pytest.raises(ValueError):

@@ -963,3 +963,155 @@ def test_seismic_command_line_runs_on_the_card_by_default(dev, tmp_path, monkeyp
     with open(os.path.join(d, "log.txt")) as f:
         values = [float(line.split()[2]) for line in f if line[0].isdigit()]
     assert np.isfinite(values).all() and max(values) > values[0] and info["blocks"] >= 4
+
+
+# ---- RPC partitions and prediction on the card -------------------------------------
+
+# The float32 predictor on the card against the float64 one: SMSE relative,
+# MSLL absolute (nats); the limits of chip_smoke.py's predict phase
+PREDICT_RTOL_SMSE = 1e-4
+PREDICT_ATOL_MSLL = 1e-4
+
+
+def _labels(blocks, n):
+    lab = np.empty(n, dtype=np.int64)
+    for b, ix in enumerate(blocks):
+        lab[ix] = b
+    return lab
+
+
+@pytest.fixture(scope="module")
+def rpc_sampled():
+    """n 600, dy 5, over an RPC partition of block size 80 (8 blocks)."""
+    from gprf_torch.data.sampled import SampledData
+
+    s = SampledData(n=650, ntrain=600, lscale=0.12, obs_std=0.015, yd=5, seed=3, noise_var=0.01)
+    s.cluster_rpc(80, rng=np.random.RandomState(3))
+    return s
+
+
+def test_rpc_replay_on_card_matches_the_host(dev, rpc_sampled):
+    """The float32 median replay on the card against the float64 host
+    replay, at X_obs and moved by N(0, 0.02^2): counted, at most 2 of 600
+    points in another block; the two folded into one replay equal each
+    alone."""
+    from gprf_torch.partition.rpc_device import FlatRPCTree, assign_blocks_rpc
+
+    s = rpc_sampled
+    flat = FlatRPCTree(s.rpc_splits, d=2)
+    arrays = flat.device_arrays(device=dev, dtype=torch.float32)
+    Xs = np.stack([s.X_obs, s.X_obs + np.random.default_rng(4).normal(size=s.X_obs.shape) * 0.02])
+
+    def replay(X):
+        return assign_blocks_rpc(torch.as_tensor(X, dtype=torch.float32, device=dev), arrays,
+                                 flat.depth, flat.n_nodes)
+
+    folded = replay(Xs)
+    for r, X in enumerate(Xs):
+        alone = replay(X)
+        assert torch.equal(folded[r], alone)
+        moved = int(np.sum(alone.cpu().numpy() != _labels(s.reblock(X), len(X))))
+        assert moved <= 2, moved
+
+
+def test_rpc_loss_on_card_matches_the_twins(dev, rpc_sampled):
+    from gprf_torch.model.fused import FusedSyntheticGPRF
+
+    s = rpc_sampled
+    edges = s.build_gprf(local_dist=0.1, device=dev, dtype=torch.float32).neighbors
+    fused = FusedSyntheticGPRF(s.X_obs, s.SY, edges, s.X_obs, s.obs_std, s.cov, s.noise_var,
+                               rpc_tree=s.rpc_splits, device=dev, dtype=torch.float32,
+                               acc_dtype=torch.float64)
+    x = torch.as_tensor(s.X_obs.reshape(-1), dtype=torch.float32, device=dev)
+    out = []
+    mvn.reset_launch_counts()
+    for ops in (mvn.KERNEL_OPS, mvn.PLAIN_OPS):
+        fused.ops = ops
+        th = x.clone().requires_grad_(True)
+        v = fused.loss_fn()(th)
+        (g,) = torch.autograd.grad(v, th)
+        out.append((float(v.detach()), g.double().cpu().numpy()))
+    assert all(mvn.launch_counts[k] >= 1 for k in ("chol_inv", "mvn_ll", "tri_inv"))
+    (v, g), (v_ref, g_ref) = out
+    assert abs(v - v_ref) <= 1e-5 * abs(v_ref)
+    assert g @ g_ref / (np.linalg.norm(g) * np.linalg.norm(g_ref)) > 0.9999
+
+
+def test_block_caches_on_card_run_k5(dev):
+    """The predictor's (L, alpha) in float32 on K5 against float64 on the
+    twins, at the command line's noise 0.01 (kappa up to ~2e3)."""
+    from gprf_torch.model import predict
+
+    s = _sampled(0.01)
+    g32, g64 = (s.build_gprf(local_dist=0.1, device=dev, dtype=dtype, ops=ops)
+                for dtype, ops in ((torch.float32, mvn.KERNEL_OPS),
+                                   (torch.float64, mvn.PLAIN_OPS)))
+    mvn.reset_launch_counts()
+    _, _, L32, A32 = predict._snapshot(g32, None)
+    torch.cuda.synchronize()
+    assert mvn.launch_counts["cholesky"] == 1 and L32.shape == (9, 88, 88)
+    _, _, L64, A64 = predict._snapshot(g64, None)
+    assert mvn.launch_counts["cholesky"] == 1
+    assert float((L32.double() - L64).abs().max() / L64.abs().max()) <= RTOL
+    assert float((A32.double() - A64).abs().max() / A64.abs().max()) <= 1e-3
+
+
+def test_predictor_on_card_float32_against_float64(dev):
+    s = _sampled(0.01)
+    X = s.X_obs + np.random.default_rng(5).normal(size=s.X_obs.shape) * 0.005
+    mvn.reset_launch_counts()
+    (s32, b32, d32), (s64, b64, d64) = (
+        s.prediction_error(X=X, local_dist=0.1, device=dev, dtype=dtype, ops=ops)
+        for dtype, ops in ((torch.float32, mvn.KERNEL_OPS), (torch.float64, mvn.PLAIN_OPS)))
+    assert mvn.launch_counts["cholesky"] == 1
+    assert abs(s32 - s64) <= PREDICT_RTOL_SMSE * abs(s64) and 0 < s64 < 1
+    assert max(abs(b32 - b64), abs(d32 - d64)) <= PREDICT_ATOL_MSLL
+
+
+def test_exact_gp_on_card_matches_the_cpu(dev):
+    s = _sampled(0.01)
+    on_card = s.prediction_error_gp(s.X_obs, device=dev, dtype=torch.float64)
+    on_cpu = s.prediction_error_gp(s.X_obs, device="cpu", dtype=torch.float64)
+    assert np.isfinite(on_card) and abs(on_card - on_cpu) <= 1e-9 * abs(on_cpu)
+
+
+@pytest.mark.parametrize("engine", [["--engine", "host", "--maxsec", "10"],
+                                    ["--engine", "device", "--max_iters", "40"],
+                                    ["--engine", "device", "--multistart", "2", "--max_iters",
+                                     "20"]])
+def test_rpc_command_line_runs_on_the_card(dev, tmp_path, monkeypatch, engine):
+    from gprf_torch.analysis.results import load_final_results
+    from gprf_torch.cli import gprfopt
+
+    monkeypatch.setenv("GPRF_EXPERIMENTS", str(tmp_path))
+    argv = ["--ntrain", "400", "--ntest", "50", "--rpc_blocksize", "60", "--lscale", "0.1",
+            "--local_dist", "0.1", "--yd", "5", "--task", "x"] + engine
+    mvn.reset_launch_counts()
+    gprfopt.main(argv)
+    assert all(mvn.launch_counts[k] >= 1 for k in ("chol_inv", "mvn_ll", "tri_inv"))
+    d = gprfopt.exp_dir(gprfopt.build_parser().parse_args(argv))
+    files = set(os.listdir(d))
+    assert {"log.txt", "results.txt", "finished"} <= files
+    assert ("multistart.txt" in files) == ("--multistart" in engine)
+    with open(os.path.join(d, "log.txt")) as f:
+        values = [float(line.split()[2]) for line in f if line[0].isdigit()]
+    assert np.isfinite(values).all() and max(values) > values[0]
+    assert np.isfinite(load_final_results(d)[1]["mll"])
+
+
+def test_analyze_full_on_the_card(dev, tmp_path, monkeypatch):
+    """A fit, then --analyze --analyze_full on its directory: the predictive
+    columns fill, through K5."""
+    from gprf_torch.analysis.results import load_results
+    from gprf_torch.cli import gprfopt
+
+    monkeypatch.setenv("GPRF_EXPERIMENTS", str(tmp_path))
+    argv = ["--ntrain", "400", "--ntest", "50", "--nblocks", "9", "--lscale", "0.1",
+            "--local_dist", "0.1", "--yd", "5", "--task", "x", "--engine", "device",
+            "--max_iters", "20"]
+    gprfopt.main(argv)
+    mvn.reset_launch_counts()
+    gprfopt.main(argv + ["--analyze", "--analyze_full"])
+    assert mvn.launch_counts["cholesky"] >= 1 and mvn.launch_counts["mvn_ll_inv"] == 0
+    rows = load_results(gprfopt.exp_dir(gprfopt.build_parser().parse_args(argv)))[:, 6:]
+    assert np.isfinite(rows).all() and (rows != 0).all() and (rows[:, :2] < 1).all()

@@ -181,14 +181,30 @@ def test_sampled_data_from_the_references_arrays():
     np.testing.assert_array_equal(c.SY, j.SY)
 
 
-def test_unported_scoring_and_partitions_raise():
-    t, _ = _both_sampled()
-    for call in (lambda: t.cluster_rpc(50), lambda: t.prediction_error(),
-                 lambda: t.prediction_error_gp(t.X_obs)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsampled.sample_data(330, 300, 0.15, 0.02, 4, 2, None, 0.01, rpc_blocksize=50)
+def test_rpc_partition_of_the_dataset_matches_jax():
+    t, j = _both_sampled()
+    t.cluster_rpc(50, rng=np.random.RandomState(2))
+    np.random.seed(2)  # the reference draws its split points from NumPy's global stream
+    j.cluster_rpc(50)
+    assert t.neighbors is None and j.neighbors is None and len(t.block_idxs) == 8
+    for a, b in zip(t.block_idxs, j.block_idxs):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(t.reblock(t.SX), j.reblock(j.SX)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_predictive_scores_match_jax():
+    """prediction_error on a grid partition and prediction_error_gp, on one
+    dataset (the reference's SY, which differs from the port's draw in the
+    last bits)."""
+    t, j = _both_sampled()
+    t.SY, t.Ytest = j.SY.copy(), j.Ytest.copy()
+    for s in (t, j):
+        s.set_centers(grid_centers(4))
+    np.testing.assert_allclose(t.prediction_error(local_dist=0.1, **F64),
+                               j.prediction_error(local_dist=0.1), rtol=1e-6)
+    np.testing.assert_allclose(t.prediction_error_gp(t.X_obs, **F64),
+                               j.prediction_error_gp(j.X_obs), rtol=1e-9)
 
 
 def test_dataset_cache_holds_arrays_and_never_opens_a_pickle(tmp_path, monkeypatch):

@@ -16,6 +16,7 @@ from gprf_torch.model import fused as tfused
 from gprf_torch.ops import mvn
 from gprf_torch.ops import split_mvn
 from gprf_torch.optim.lbfgs import make_scan_lbfgs_runner
+from gprf_torch.partition import rpc as trpc
 from gprf_torch.utils.convert import cov_from_numpy
 
 torch.set_num_threads(1)
@@ -141,12 +142,38 @@ def test_tasks_cov_and_xcov_match_jax(task, C0):
     assert bool(tf.overflow_fn()(th.detach())) == bool(jf.overflow_fn()(jnp.asarray(theta)))
 
 
-def test_rpc_partition_is_not_ported_yet():
+def test_exactly_one_partition_is_given():
     p = _entry_problem()
-    with pytest.raises(NotImplementedError):
-        tfused.FusedSyntheticGPRF(p["X0"], p["Y"], p["edges"], p["X_obs"], 0.05,
-                                  cov_from_numpy([1.0], [0.2, 0.2], **F64), 0.01,
-                                  rpc_tree=object(), **F64)
+    args = (p["X0"], p["Y"], p["edges"], p["X_obs"], 0.05,
+            cov_from_numpy([1.0], [0.2, 0.2], **F64), 0.01)
+    tree = trpc.cluster_rpc(p["X0"], np.arange(len(p["X0"])), 30,
+                            rng=np.random.RandomState(0))[1]
+    for part in (dict(), dict(centers=p["centers"], rpc_tree=tree)):
+        with pytest.raises(ValueError, match="exactly one"):
+            tfused.FusedSyntheticGPRF(*args, **part, **F64)
+    assert tfused.FusedSyntheticGPRF(*args, rpc_tree=tree, **F64).kind == "rpc"
+
+
+def test_entry_problem_over_an_rpc_partition_matches_jax():
+    """The entry problem's points split by RPC (the same tree in both
+    packages), at two moved points: loss and gradient."""
+    p = _entry_problem()
+    n = len(p["X0"])
+    tree = trpc.cluster_rpc(p["X0"], np.arange(n), 30, rng=np.random.RandomState(1))[1]
+    args = (p["X0"], p["Y"], p["edges"][:3], p["X_obs"], p["obs_std"])
+    jf = jfused.FusedSyntheticGPRF(*args, JCov.create(p["wfn"], p["dfn"]), p["noise_var"],
+                                   rpc_tree=tree)
+    tf = tfused.FusedSyntheticGPRF(*args, cov_from_numpy(p["wfn"], p["dfn"], **F64),
+                                   p["noise_var"], rpc_tree=tree, **F64)
+    assert tf.n_blocks == jf.n_blocks == 4 and tf.m == jf.m
+    rng = np.random.default_rng(2)
+    for _ in range(2):
+        x = (p["X0"] + rng.normal(size=p["X0"].shape) * 0.01).reshape(-1)
+        v_ref, g_ref = jax.value_and_grad(jf.loss_fn())(jnp.asarray(x))
+        th = torch.tensor(x, requires_grad=True)
+        v = tf.loss_fn()(th)
+        (g,) = torch.autograd.grad(v, th)
+        _assert_close(float(v.detach()), g.numpy(), float(v_ref), np.asarray(g_ref))
 
 
 def test_scan_lbfgs_trajectory_matches_jax():

@@ -194,8 +194,19 @@ def test_unported_model_methods_raise(data):
     tg, _ = _pair(data)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tg.llgrad(sparse=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.train_predictor()
+
+
+@pytest.mark.parametrize("test_noise_var", [0.0, 0.01])
+def test_train_predictor_matches_jax(data, test_noise_var):
+    """GPRF.train_predictor at the model's current X, after an update_X."""
+    tg, jg = _pair(data)
+    X = data[0].X_obs + np.random.default_rng(3).normal(size=data[0].X_obs.shape) * 0.005
+    tg.update_X(X)
+    jg.update_X(X)
+    Xstar = data[0].Xtest[:9]
+    for a, b in zip(tg.train_predictor()(Xstar, test_noise_var=test_noise_var),
+                    jg.train_predictor()(Xstar, test_noise_var=test_noise_var)):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=RTOL, atol=1e-10)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
