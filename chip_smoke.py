@@ -105,9 +105,27 @@ Phases, each of which raises on failure (exit code 1, no result line):
              of FusedSeismicGPRF against their twins and each other.
 14. seismic_host - the same data with ``--engine host`` for a few seconds:
              the files and a rising objective.
+15. eighty - ``gprf_torch.cli.gprfopt.main`` on the paper's 80k command
+             (n = 80,000 + 500, 100 blocks, 342 edges, m ~ 872-888, lengthscale
+             0.021213, obs_std 0.007071, task x) on the Vecchia draw
+             (GPRF_SAMPLER=vecchia), device engine, EIGHTY_ITERS iterations,
+             counters reset before and read after: the cli phase's checks,
+             K1-K3 launched and K4, K5 not, row 0's and the trueX row's
+             objective beside the JAX package's artifact
+             (docs/runs/gprf80k_device/results.txt); the launches of one
+             forward and one loss+grad (the pair pass in chunks of 64, each
+             chunk's forward again in its backward).  At the fit's final X:
+             the kernels against the twins in float32; the float64 joint form
+             (torch.linalg, chunked by GPRF's budget) against the float64
+             Schur split on the twins (RTOL_JOINT); float32 on the kernels
+             against that (EIGHTY_F32_RTOL, EIGHTY_F32_MIN_COSINE); one
+             GPRF.llgrad of the host engine against the device engine's loss
+             less its X prior; K1, K2 and K3 against their twins on every leaf
+             shape of this path; peak memory, device-busy ms and launches of one
+             loss+grad chunked by 64 and unchunked.
 
 Output: a JSON line describing each kernel (its launches on the main path
-and in the cli, rpc, predict and seismic phases, its max abs error against
+and in the cli, rpc, predict, seismic and eighty phases, its max abs error against
 its twin, its ms, its twin's, its library call's and its bound), the
 nvidia-smi line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -176,6 +194,31 @@ SEISMIC_REPLICAS = 4
 SEISMIC_R = ("R1", f"R{SEISMIC_REPLICAS}")  # the replica counts its kernels are held at
 # its partition at the observed locations (docs/RESULTS.md:247)
 SEISMIC_SHAPE = {"blocks": 64, "edges": 108, "m": 192}
+# The paper's largest synthetic configuration, its 80k rows (docs/runs/README.md):
+# n = 80,000 + 500 in 100 grid blocks, m ~ 872-888, 342 edges with the diagonal
+# ones, on the Vecchia prior draw (GPRF_SAMPLER=vecchia), the draw of the JAX
+# package's docs/runs/gprf80k_device artifact; cut to EIGHTY_ITERS iterations
+EIGHTY_FLAGS = ["--ntrain", "80000", "--ntest", "500", "--nblocks", "100", "--lscale",
+                "0.021213", "--obs_std", "0.007071", "--yd", "50", "--local_dist", "0.1",
+                "--task", "x"]
+EIGHTY_DATA = dict(n=80500, ntrain=80000, lscale=0.021213, obs_std=0.007071, yd=50, seed=0,
+                   noise_var=0.01)
+EIGHTY_SAMPLER = "vecchia"
+EIGHTY_ITERS = 40
+EIGHTY_CHUNK = 64  # FusedSyntheticGPRF's pair chunk past m = 512
+OUR_KERNELS = ("chol_inv_kernel", "mvn_kernel", "tri_inv_kernel")  # K1-K3 in a profiler trace
+# docs/runs/gprf80k_device/results.txt: row 0's objective and the trueX row's
+JAX_EIGHTY_LL = (-52381247.52, 2765341.28)
+# the float64 joint form (torch.linalg) against the float64 Schur split (the
+# twins): one algebra against another, both in float64
+RTOL_JOINT = 1e-9
+# the float32 Schur loss on the kernels against the float64 joint form, at
+# X_obs and at the fit's final X: 10x the largest gaps measured on an H100
+# 80GB HBM3 at 700 W (loss rel 3.467e-5 at X_obs, 1 - cosine 7.27e-5 at the
+# final X; PERF.md section 6): float32's own floor at wide m, as far from
+# float64 as the twins in float32 are
+EIGHTY_F32_RTOL = 3.5e-4
+EIGHTY_F32_MIN_COSINE = 0.99927
 # the multistart check: replicas and steps on the bench's problem.  Two float32
 # runs whose reductions reassociate part by ~1e-7 at the first steps, and this
 # ill-conditioned problem (Y iid noise) grows that ~3x a step, past 1e-5 at
@@ -292,14 +335,17 @@ def build_problem(torch, dev):
     return fused, X_obs
 
 
-def recorded_inputs(holder, evaluate):
+def recorded_inputs(holder, evaluate, every_shape=False):
     """Each kernel's inputs as a path gives them, recorded from one
     evaluation of the default route on the twins (``holder.ops`` is pointed
     at recording twins for the call of ``evaluate`` and back at the kernels
     after it): K1 the padded unary blocks [B, m, m]; K2 the pair Schur
     complements [E, m, m], their right-hand sides [E, m, dy] and active
     counts [E]; K3 the pair factors [E, m, m] that K2's backward inverts.
-    K5 factors K1's blocks on its route and K4 takes K2's inputs on its."""
+    K5 factors K1's blocks on its route and K4 takes K2's inputs on its.
+    name -> the inputs of the kernel's last call, or with ``every_shape``
+    name -> the inputs of its first call at each distinct shape (a split
+    path runs its leaves at several)."""
     import torch
 
     from gprf_torch.ops import mvn
@@ -308,7 +354,11 @@ def recorded_inputs(holder, evaluate):
 
     def recorded(name, fn):
         def f(*args):
-            seen[name] = tuple(a.detach().contiguous() for a in args)
+            shapes = tuple(tuple(a.shape) for a in args)
+            calls = seen.setdefault(name, {})
+            if shapes not in calls or not every_shape:
+                calls.pop(shapes, None)  # last call last
+                calls[shapes] = tuple(a.detach().contiguous() for a in args)
             return fn(*args)
         return f
 
@@ -316,12 +366,13 @@ def recorded_inputs(holder, evaluate):
     with torch.no_grad():
         evaluate()
     holder.ops = mvn.KERNEL_OPS
+    seen = {name: list(calls.values()) for name, calls in seen.items()}
     if "mvn_ll" in seen:
-        seen["tri_inv"] = (mvn.mvn_ll_plain(*seen["mvn_ll"])[1],)
+        seen["tri_inv"] = [(mvn.mvn_ll_plain(*args)[1],) for args in seen["mvn_ll"]]
         seen["mvn_ll_inv"] = seen["mvn_ll"]
     if "chol_inv" in seen:
         seen.setdefault("cholesky", seen["chol_inv"])
-    return seen
+    return seen if every_shape else {name: calls[-1] for name, calls in seen.items()}
 
 
 def flagship_inputs(fused, x_flat, torch):
@@ -725,11 +776,13 @@ def read_log(d):
     return steps, values
 
 
-def cli_engine(data, torch):
-    """The device engine as the command line builds it for task x."""
+def cli_engine(data, torch, X0=None):
+    """The device engine as the command line builds it for task x (its
+    capacity m from the data at X0, by default X_obs)."""
     from gprf_torch.model.fused import FusedSyntheticGPRF
 
-    return FusedSyntheticGPRF(data.X_obs, data.SY, data.neighbors, data.X_obs, data.obs_std,
+    return FusedSyntheticGPRF(data.X_obs if X0 is None else X0, data.SY, data.neighbors,
+                              data.X_obs, data.obs_std,
                               data.cov, data.noise_var, task="x",
                               centers=np.asarray(data.centers), device="cuda",
                               dtype=torch.float32, acc_dtype=torch.float64)
@@ -1260,6 +1313,251 @@ def run_seismic_host(base, data, torch):
                 seconds={k: info[k] for k in ("sample_s", "fit_s", "analyze_s")})
 
 
+def check_remat_launches(fwd, both, nch):
+    """A chunked pair pass launches K2 once a chunk in the forward; a
+    loss+grad runs each chunk's forward again in its backward, so K2 twice
+    and K3 (K2's backward) once a chunk, and K1 again for the pair leaves."""
+    if not (fwd["mvn_ll"] == nch and both["mvn_ll"] == 2 * nch and both["tri_inv"] == nch
+            and both["chol_inv"] > fwd["chol_inv"]):
+        raise AssertionError(f"80k launches: forward {fwd}, loss+grad {both}, chunks {nch}")
+
+
+def float32_held(got, twins):
+    """A float32 result no farther from float64 than 4x the float32 twins
+    (each a gap() record against the twins in float64), or within the
+    routes' limits of it: the rule of the card tests at noise 0.01 (PR 8),
+    for points where float32's own floor exceeds those limits."""
+    return (got["rel"] <= max(4 * twins["rel"], RTOL_LOSS)
+            and 1 - got["cosine"] <= max(4 * (1 - twins["cosine"]), 1 - MIN_GRAD_COSINE))
+
+
+def run_eighty(base, cases, torch):
+    """Phase 15: the paper's 80k command on the device engine at wide m, and
+    at its final X the kernels against the twins, the float64 joint form
+    against the float64 Schur split, float32 against that, and the host
+    engine's objective against the device engine's."""
+    import io
+
+    from gprf_torch.analysis.results import load_final_results, load_results
+    from gprf_torch.bench import kernel_events
+    from gprf_torch.cli import gprfopt
+    from gprf_torch.data.sampled import sample_data
+    from gprf_torch.model.fused import assemble_layout, grid_labels
+    from gprf_torch.model.gprf import _auto_chunk
+    from gprf_torch.model.objective import (GPRFParams, gprf_value_and_grad,
+                                            gprf_value_and_grad_schur)
+    from gprf_torch.ops import mvn
+    from gprf_torch.optim.lbfgs import value_and_grad
+    from gprf_torch.partition.grid import grid_centers
+
+    os.environ["GPRF_EXPERIMENTS"] = base
+    os.environ["GPRF_SAMPLER"] = EIGHTY_SAMPLER
+    argv = EIGHTY_FLAGS + ["--engine", "device", "--max_iters", str(EIGHTY_ITERS)]
+    d = gprfopt.exp_dir(gprfopt.build_parser().parse_args(argv))
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    mvn.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        seconds = gprfopt.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(mvn.launch_counts)
+    sys.stderr.write(out.getvalue())
+    reported = next(line for line in out.getvalue().splitlines()
+                    if line.startswith("device engine: B = "))
+    B, E, m_end = (int(w) for w in reported.replace(",", " ").split() if w.isdigit())
+    files = sorted(os.listdir(d))
+    wanted = ["log.txt", "optimizer_state.npz", "results.txt", "finished",
+              "step_%05d_X.npy" % (EIGHTY_ITERS - 1)]
+    if [f for f in wanted if f not in files]:
+        raise AssertionError(f"80k run left {files}; want {wanted}")
+    steps, values = read_log(d)
+    results = load_results(d)
+    final, true_row = load_final_results(d)
+    mad_first, mad_last = float(results[0, 4]), float(final["mad"])
+    data = sample_data(centers=grid_centers(NBLOCKS), **EIGHTY_DATA)  # the run's, from its cache
+    m_start = cli_engine(data, torch).m
+    ms_iter = seconds["fit_s"] / len(steps) * 1e3
+    log(f"80k (device engine, GPRF_SAMPLER={EIGHTY_SAMPLER}): B={B}, E={E}, m {m_start} -> "
+        f"{m_end}; {len(steps)} iterations, {ms_iter:.1f} ms each; objective {values[0]:.2f} -> "
+        f"{values[-1]:.2f}, at the true X {true_row['mll']:.2f}; the JAX package's artifact "
+        f"(docs/runs/gprf80k_device/results.txt): row 0 {JAX_EIGHTY_LL[0]:.2f}, trueX "
+        f"{JAX_EIGHTY_LL[1]:.2f}; mad {mad_first:.8f} -> {mad_last:.8f}; seconds: sampling "
+        f"{seconds['sample_s']:.2f} (the 80,500-point Vecchia draw, on the host), fitting "
+        f"{seconds['fit_s']:.2f}, analysis {seconds['analyze_s']:.2f}; launches {launches}")
+    if list(steps) != list(range(EIGHTY_ITERS)):
+        raise AssertionError(f"80k run logged steps {steps[0]}..{steps[-1]} ({len(steps)})")
+    if not (values[-1] > values[0] and mad_last < mad_first and np.isfinite(true_row["mll"])):
+        raise AssertionError(f"80k run: objective {values[0]} -> {values[-1]}, mad {mad_first} "
+                             f"-> {mad_last}, trueX objective {true_row['mll']}")
+    check_launches("the 80k run", launches, ("chol_inv", "mvn_ll", "tri_inv"),
+                   ("mvn_ll_inv", "cholesky"))
+
+    # the engine at the fit's final X (its capacity from the data there)
+    X_final = np.load(os.path.join(d, "step_%05d_X.npy" % (EIGHTY_ITERS - 1)))
+    fused = cli_engine(data, torch, X0=X_final)
+    m = fused.m
+    x = torch.as_tensor(X_final.reshape(-1), dtype=torch.float32, device="cuda")
+    if fused.loss_pair_chunk != EIGHTY_CHUNK:
+        raise AssertionError(f"80k engine at m={m} chunks the pairs by {fused.loss_pair_chunk}")
+
+    # one loss+grad: each chunk's forward runs again in its backward
+    nch = -(-E // EIGHTY_CHUNK)
+    loss = fused.loss_fn()
+    counts = {}
+    for what, run in (("forward", lambda: loss(x)), ("loss+grad", lambda: value_and_grad(loss, x))):
+        mvn.reset_launch_counts()
+        with torch.set_grad_enabled(what != "forward"):
+            run()
+        torch.cuda.synchronize()
+        counts[what] = dict(mvn.launch_counts)
+    fwd, both = counts["forward"], counts["loss+grad"]
+    log(f"80k, m={m}, {nch} pair chunks of {EIGHTY_CHUNK}: launches of one forward {fwd}, of one "
+        f"loss+grad {both}")
+    check_remat_launches(fwd, both, nch)
+
+    # at X_obs and at the final X, on the float64 partition of each: the
+    # default route's Schur form on the kernels and on the twins in float32,
+    # on the twins in float64, and the joint form in float64 (no X prior)
+    f32, f64 = torch.float32, torch.float64
+    centers = torch.as_tensor(np.asarray(data.centers), dtype=f64, device="cuda")
+    edges = fused.edges
+    ei, ej = edges[:, 0], edges[:, 1]
+    Y = {f32: fused.Y, f64: fused.Y.double()}
+    uw = {f32: fused.unary_weights, f64: fused.unary_weights.double()}
+    pw = {f32: fused.pair_weights, f64: fused.pair_weights.double()}
+
+    def objectives(X_np):
+        p = {dt: GPRFParams(X=torch.as_tensor(X_np, dtype=dt, device="cuda"),
+                            wfn_params=fused.cov.wfn_params.to(dt),
+                            dfn_params=fused.cov.dfn_params.to(dt),
+                            noise_var=torch.tensor(data.noise_var, dtype=dt, device="cuda"))
+             for dt in (f32, f64)}
+        labels = grid_labels(p[f64].X, centers)
+        mX = (int(torch.bincount(labels, minlength=B).max()) + 7) // 8 * 8
+        assignment, mask, _ = assemble_layout(labels, B, mX)
+        out = {}
+        for key, dt, ops in (("kernels", f32, mvn.KERNEL_OPS), ("twins", f32, mvn.PLAIN_OPS),
+                             ("twins64", f64, mvn.PLAIN_OPS)):
+            ll, gX, _ = gprf_value_and_grad_schur(p[dt], Y[dt], assignment, mask, edges, uw[dt],
+                                                  pw[dt], acc_dtype=f64, ops=ops,
+                                                  pair_chunk=EIGHTY_CHUNK)
+            out[key] = (ll, gX.reshape(-1))
+        chunks = dict(unary_chunk=_auto_chunk(B, mX), pair_chunk=_auto_chunk(E, 2 * mX))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ll, gX, _ = gprf_value_and_grad(
+            p[f64], Y[f64], assignment, mask, torch.cat([assignment[ei], assignment[ej]], 1),
+            torch.cat([mask[ei], mask[ej]], 1), uw[f64], pw[f64], **chunks)
+        torch.cuda.synchronize()
+        out["joint64"] = (ll, gX.reshape(-1))
+        return out, dict(m=mX, joint_chunks=chunks, joint_s=time.perf_counter() - t0)
+
+    def gap(a, b):
+        rel, cosine = agreement(a, b)
+        return dict(rel=rel, cosine=cosine)
+
+    agree = {}
+    for where, X_np in (("X_obs", data.X_obs), ("final", X_final)):
+        out, info = objectives(X_np)
+        pairs = {"kernels_twins": gap(out["kernels"], out["twins"]),
+                 "kernels_twins64": gap(out["kernels"], out["twins64"]),
+                 "twins_twins64": gap(out["twins"], out["twins64"]),
+                 "joint64_twins64": gap(out["joint64"], out["twins64"]),
+                 "kernels_joint64": gap(out["kernels"], out["joint64"])}
+        agree[where] = dict(info, values={k: float(v[0]) for k, v in out.items()}, **pairs)
+        log(f"80k at {where} (m={info['m']}; the joint form [E, {2 * info['m']}, "
+            f"{2 * info['m']}] in chunks {info['joint_chunks']}, {info['joint_s']:.2f} s with its "
+            f"gradient): values {agree[where]['values']}; (loss rel, gradient cosine) "
+            + ", ".join(f"{k} ({v['rel']:.3e}, {v['cosine']:.10f})" for k, v in pairs.items()))
+        k_t, k_64, t_64 = (pairs[k] for k in ("kernels_twins", "kernels_twins64",
+                                               "twins_twins64"))
+        if not pairs["joint64_twins64"]["rel"] <= RTOL_JOINT:
+            raise AssertionError(f"80k at {where}: the joint form against the Schur split, "
+                                 f"{pairs['joint64_twins64']}")
+        # the kernels against the twins; at the final X, where float32's
+        # floor in the gradient is ~7e-5, both against float64 instead
+        held = k_t["rel"] <= RTOL_LOSS and k_t["cosine"] > MIN_GRAD_COSINE
+        if where == "final" and not held:
+            held = float32_held(k_64, t_64)
+        if not held:
+            raise AssertionError(f"80k at {where}: the kernels disagree: {pairs}")
+        f32_joint = pairs["kernels_joint64"]
+        if not (f32_joint["rel"] <= EIGHTY_F32_RTOL and f32_joint["cosine"] > EIGHTY_F32_MIN_COSINE):
+            raise AssertionError(f"80k at {where}: float32 against the float64 joint form "
+                                 f"{f32_joint}")
+        final64 = (out["twins64"][0], out["twins64"][1].cpu())
+    vg = value_and_grad(loss, x)  # the device engine's loss at the final X
+
+    # the host engine's objective: GPRF.llgrad over the host's re-blocking
+    gprf = data.build_gprf(local_dist=0.1, device="cuda", dtype=torch.float32)
+    gprf.update_X(X_final)
+    host_chunk = gprf._pair_chunk_for(gprf._device_arrays())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host_ll, host_gX, _ = gprf.llgrad(grad_X=True)
+    host_s = time.perf_counter() - t0
+    r = (X_final - data.X_obs) / data.obs_std
+    prior = -0.5 * float(np.sum(r * r)) - 0.5 * r.size * np.log(2 * np.pi * data.obs_std ** 2)
+    fused_ll = -float(vg[0]) - prior
+    fused_gX = -vg[1].double().cpu().numpy() + r.reshape(-1) / data.obs_std
+    host_rel = abs(host_ll - fused_ll) / abs(fused_ll)
+    host_cos = float(host_gX.reshape(-1) @ fused_gX
+                     / (np.linalg.norm(host_gX) * np.linalg.norm(fused_gX)))
+    host_64 = gap((torch.tensor(host_ll), torch.as_tensor(host_gX.reshape(-1))), final64)
+    log(f"80k at the final X: GPRF(form='schur').llgrad(grad_X=True) (host engine's objective, "
+        f"m={gprf.layout.block_pad}, pair chunk {host_chunk}, {host_s:.2f} s) {host_ll:.4f} "
+        f"against the device engine's loss less its X prior {fused_ll:.4f}: rel {host_rel:.3e}, "
+        f"gradient cosine {host_cos:.8f}; against the twins in float64: {host_64}")
+    if not (host_rel <= RTOL_LOSS and float32_held(host_64, agree["final"]["twins_twins64"])):
+        raise AssertionError(f"80k host objective disagrees: rel {host_rel:.3e}, cosine "
+                             f"{host_cos}, against float64 {host_64}")
+    del gprf
+
+    # K1-K3 against their twins on every leaf shape this path gives them
+    inputs = recorded_inputs(fused, lambda: fused.loss_fn()(x), every_shape=True)
+    kernels = {}
+    for name in ("chol_inv", "mvn_ll", "tri_inv"):
+        kernels[name] = [dict(shape=list(args[0].shape) + [a.shape[-1] for a in args[1:2]],
+                              **compare(cases[name], args, torch, what=f"80k path, m={m}: "))
+                         for args in inputs[name]]
+    del inputs
+
+    # one loss+grad chunked (the default) and unchunked: peak memory, device busy
+    memory = {}
+    for chunk in (EIGHTY_CHUNK, None):
+        fused.pair_chunk = E if chunk is None else chunk  # a chunk of all edges: none
+        loss = fused.loss_fn()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        value_and_grad(loss, x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        events = kernel_events(loss, x, calls=3)
+        busy, n_launch = sum(us for _, us in events) / 3e3, len(events) / 3
+        ours = sum(us for name, us in events if any(k in name for k in OUR_KERNELS)) / 3e3
+        (eval_ms,) = eval_ms_in_turns([loss], x, torch, reps=4)
+        key = "chunk_%d" % chunk if chunk else "unchunked"
+        memory[key] = dict(peak_gb=peak / 1e9, above_resident_gb=(peak - resident) / 1e9,
+                           device_busy_ms=busy, device_launches=n_launch, k1_k3_ms=ours,
+                           eval_ms=eval_ms)
+        log(f"80k one loss+grad, {key}: peak memory {peak / 1e9:.2f} GB ({(peak - resident) / 1e9:.2f}"
+            f" above the resident), device busy {busy:.3f} ms ({n_launch:.0f} launches, of them "
+            f"K1-K3 {ours:.3f} ms), host clock {eval_ms:.3f} ms (median of 4)")
+    fused.pair_chunk = None
+    return dict(kernels=kernels, blocks=B, edges=E, m_start=m_start, m_end=m_end, m_final=m,
+                iterations=len(steps), ms_per_iteration=ms_iter,
+                objective=[float(values[0]), float(values[-1])],
+                true_x_objective=float(true_row["mll"]), jax_artifact=list(JAX_EIGHTY_LL),
+                mad=[mad_first, mad_last], seconds=seconds, launches=launches,
+                launches_one_forward=fwd, launches_one_loss_grad=both,
+                agreement=agree,
+                host=dict(value=host_ll, rel=host_rel, cosine=host_cos, pair_chunk=host_chunk,
+                          seconds=host_s),
+                memory=memory)
+
+
 def main():
     import torch
 
@@ -1299,7 +1597,8 @@ def main():
 
     from gprf_torch import bench
 
-    experiments = {k: os.environ.get(k) for k in ("GPRF_EXPERIMENTS", "SEISMIC_EXPERIMENTS")}
+    experiments = {k: os.environ.get(k) for k in ("GPRF_EXPERIMENTS", "SEISMIC_EXPERIMENTS",
+                                                  "GPRF_SAMPLER")}
     try:
         with tempfile.TemporaryDirectory() as base, tempfile.TemporaryDirectory() as host_base:
             cli, data = run_cli(base, cases, torch)
@@ -1310,6 +1609,8 @@ def main():
         with tempfile.TemporaryDirectory() as base:
             seismic, seismic_data = run_seismic_device(base, cases, torch)
             seismic_host = run_seismic_host(base, seismic_data, torch)
+        with tempfile.TemporaryDirectory() as base:
+            eighty = run_eighty(base, cases, torch)
     finally:  # the phases pointed them at directories that are gone now
         for k, v in experiments.items():
             if v is None:
@@ -1321,12 +1622,14 @@ def main():
         report[name]["seismic_launches"] = seismic["launches"][name]
         report[name]["rpc_launches"] = rpc["launches"][name]
         report[name]["predict_launches"] = predict["launches"][name]
-        if name in cli["kernels"]:  # the same kernel at the command line's, RPC and seismic shapes
+        report[name]["eighty_launches"] = eighty["launches"][name]
+        if name in cli["kernels"]:  # the same kernel at the command line's, RPC, seismic and 80k shapes
             report[name]["cli"] = cli["kernels"][name]
             report[name]["rpc"] = rpc["kernels"][name]
             report[name]["seismic"] = {r: seismic[r]["kernels"][name] for r in SEISMIC_R}
+            report[name]["eighty"] = eighty["kernels"][name]
     report["cholesky"]["predict"] = predict.pop("block_caches_kernel")
-    del rpc["kernels"]
+    del rpc["kernels"], eighty["kernels"]
     for r in SEISMIC_R:
         del seismic[r]["kernels"]
     bench_record = bench.run(dev, log=log)
@@ -1337,7 +1640,8 @@ def main():
         "slice": {"n": N, "blocks": NBLOCKS, "m": M0, "edges": bench_edges, "dy": DY, "routes": routes,
                   "cli": cli, "predict": predict, "rpc": rpc, "host": host, "resume": resume,
                   "bench": bench_record,
-                  "multistart": multistart, "seismic": seismic, "seismic_host": seismic_host},
+                  "multistart": multistart, "seismic": seismic, "seismic_host": seismic_host,
+                  "eighty": eighty},
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

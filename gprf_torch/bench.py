@@ -63,10 +63,10 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def device_busy(loss, x0, calls=5):
-    """(device-busy ms, kernel launches) of one loss+gradient on a CUDA
-    device: the kernel events of a ``torch.profiler`` trace over ``calls``
-    calls, summed, per call (copies and memsets left out)."""
+def kernel_events(loss, x0, calls=5):
+    """(name, device us) of every kernel a ``torch.profiler`` trace records
+    over ``calls`` calls of one loss+gradient on a CUDA device, after one
+    warm call (copies and memsets left out)."""
     from torch.profiler import ProfilerActivity, profile
 
     value_and_grad(loss, x0)
@@ -75,12 +75,19 @@ def device_busy(loss, x0, calls=5):
         for _ in range(calls):
             value_and_grad(loss, x0)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+    kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.name.startswith(("Memcpy", "Memset"))]
     if not kernels:
         raise RuntimeError("torch.profiler recorded no kernel on the device")
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    return busy_us / 1e3 / calls, len(kernels) / calls
+    return kernels
+
+
+def device_busy(loss, x0, calls=5):
+    """(device-busy ms, kernel launches) of one loss+gradient on a CUDA
+    device: :func:`kernel_events` summed, per call."""
+    kernels = kernel_events(loss, x0, calls)
+    return sum(us for _, us in kernels) / 1e3 / calls, len(kernels) / calls
 
 
 def splits_at(m: int, dy: int) -> list[str]:

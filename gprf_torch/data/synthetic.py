@@ -17,10 +17,12 @@ dataset depends on whether 64-bit mode was switched on before the draw; the
 two packages agree when the reference runs in 64-bit mode.  At n = 10,500
 this is one 10,500 x 10,500 float64 Cholesky (~0.9 GB) on the host.
 
-Below 12,000 points the draw is dense; from 12,000 to 20,000 points (with
-no ``GPRF_SAMPLER``) it is the truncated-support sparse draw of
-:mod:`gprf_torch.sparse.ops`, as in the reference.  The banded, Vecchia and
-"hi" samplers are not ported.
+Below 12,000 points the draw is dense.  Above, ``GPRF_SAMPLER`` picks it,
+as in the reference: by default the truncated-support sparse draw of
+:mod:`gprf_torch.sparse.ops` up to 20,000 points and its exact banded draw
+above; ``vecchia`` the approximate Vecchia draw :func:`sample_y_blocked`
+(the draw of the reference's earlier large-n datasets) and ``hi`` the same
+with four times the conditioning points and neighbors.
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ import numpy as np
 import torch
 
 from gprf_torch.kernels.gpcov import GPCov
-from gprf_torch.kernels.hostnp import kernel_matrix_np
+from gprf_torch.kernels.hostnp import cross_kernel_matrix_np, kernel_matrix_np
 from gprf_torch.linalg.jitchol import jitchol
+from gprf_torch.partition.morton import sort_morton
 
 DENSE_SAMPLING_LIMIT = 12000  # above it the reference's sparse and blocked samplers take over
 
@@ -122,21 +125,65 @@ def sample_crazy_shape(seed, n, std=0.005, rng=None):
 
 def sample_y(X, cov: GPCov, noise_var, yd, sparse_lscales=4.0, *, rng):
     """Draw Y ~ N(0, K(X) + noise_var I), [n, yd]: by one dense float64
-    Cholesky on the host below :data:`DENSE_SAMPLING_LIMIT` points, and up
-    to 20,000 points from the kernel truncated at ``sparse_lscales`` scaled
-    lengthscales, through a sparse Cholesky."""
+    Cholesky on the host below :data:`DENSE_SAMPLING_LIMIT` points; above
+    it, by the sampler ``GPRF_SAMPLER`` names (module docstring), the
+    sparse and banded draws from the kernel truncated at ``sparse_lscales``
+    scaled lengthscales."""
     X = np.asarray(X, dtype=np.float64)
     n = X.shape[0]
     if n < DENSE_SAMPLING_LIMIT:
         L = jitchol(kernel_matrix_np(cov, X, noise_var=noise_var))
         return L @ rng.randn(n, yd)
-    if n <= 20000 and not os.environ.get("GPRF_SAMPLER", ""):
-        from gprf_torch.sparse.ops import sample_y_sparse
+    from gprf_torch.sparse.ops import sample_y_banded, sample_y_sparse
 
+    sampler = os.environ.get("GPRF_SAMPLER", "")
+    if sampler == "hi":
+        return sample_y_blocked(X, cov, noise_var, yd, n_condition=8192, knn=96, rng=rng)
+    if sampler == "vecchia":
+        return sample_y_blocked(X, cov, noise_var, yd, rng=rng)
+    if not sampler and n <= 20000:
         return sample_y_sparse(X, cov, noise_var, yd, max_scaled_dist=sparse_lscales, rng=rng)
-    raise NotImplementedError(
-        f"n = {n} with GPRF_SAMPLER={os.environ.get('GPRF_SAMPLER', '')!r}: the banded, Vecchia "
-        "and 'hi' prior samplers are not ported yet (ROADMAP, still to port: the rest, sparse/)")
+    return sample_y_banded(X, cov, noise_var, yd, max_scaled_dist=sparse_lscales, rng=rng,
+                           verbose=True)
+
+
+def sample_y_blocked(X, cov: GPCov, noise_var, yd, blocksize=512, n_condition=1536, knn=24, *,
+                     rng):
+    """The Vecchia draw from the GP prior for large n: Morton-order the
+    points, cut them into consecutive blocks, and draw each block from its
+    exact conditional given the nearest points drawn before it (the union
+    of each new point's ``knn`` nearest, at most ``n_condition`` of them,
+    the closest to the block's centroid), with the normal draws from
+    ``rng``.  Conditioning on the nearest points, not on a window of the
+    Morton order, leaves no seams in the field where the order turns."""
+    from scipy.spatial import cKDTree
+
+    X = np.asarray(X, dtype=np.float64)
+    n = len(X)
+    Xs, perm = sort_morton(X)
+    Y = np.zeros((n, yd))
+    for start in range(0, n, blocksize):
+        end = min(start + blocksize, n)
+        Xb = Xs[start:end]
+        Kbb = cross_kernel_matrix_np(cov, Xb, Xb) + noise_var * np.eye(end - start)
+        if start == 0:
+            Y[start:end] = jitchol(Kbb) @ rng.standard_normal((end - start, yd))
+            continue
+        _, idx = cKDTree(Xs[:start]).query(Xb, k=min(knn, start))
+        cond = np.unique(np.asarray(idx).reshape(-1))
+        if len(cond) > n_condition:
+            dc = np.linalg.norm(Xs[cond] - Xb.mean(axis=0), axis=1)
+            cond = cond[np.argsort(dc)[:n_condition]]
+        Xc = Xs[cond]
+        Kcb = cross_kernel_matrix_np(cov, Xc, Xb)
+        Lc = jitchol(cross_kernel_matrix_np(cov, Xc, Xc) + noise_var * np.eye(len(cond)))
+        A = np.linalg.solve(Lc, Kcb)  # Lc^-1 Kcb
+        mean = A.T @ np.linalg.solve(Lc, Y[cond])
+        Ls = jitchol(Kbb - A.T @ A)
+        Y[start:end] = mean + Ls @ rng.standard_normal((end - start, yd))
+    out = np.empty_like(Y)
+    out[perm] = Y
+    return out
 
 
 def sampler_suffix(n) -> str:

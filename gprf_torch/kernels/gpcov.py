@@ -54,3 +54,36 @@ class GPCov:
         return dataclasses.replace(self,
                                    wfn_params=self.wfn_params.to(device=device, dtype=dtype),
                                    dfn_params=self.dfn_params.to(device=device, dtype=dtype))
+
+    @property
+    def signal_var(self) -> torch.Tensor:
+        return self.wfn_params[0]
+
+    @property
+    def n_params(self) -> int:
+        """Length of a gradCov row: [noise_var, signal_var, *lengthscales]."""
+        return 1 + self.wfn_params.numel() + self.dfn_params.numel()
+
+    def with_params(self, wfn_params=None, dfn_params=None) -> "GPCov":
+        """The same kernel with other parameters (tensors, or values put on
+        the device and at the width of the current ones)."""
+        def like(new, old):
+            return old if new is None else torch.as_tensor(new, dtype=old.dtype,
+                                                            device=old.device).reshape(-1)
+
+        return dataclasses.replace(self, wfn_params=like(wfn_params, self.wfn_params),
+                                   dfn_params=like(dfn_params, self.dfn_params))
+
+
+def full_cov_to_gpcov(FC, dfn_str: str = "euclidean", wfn_str: str = "se"):
+    """(GPCov, noise_var) from a full cov row ``[noise_var, signal_var, l1,
+    l2, ...]`` (a tensor, kept on its device and at its width)."""
+    FC = torch.as_tensor(FC).reshape(-1)
+    return GPCov(wfn_params=FC[1:2], dfn_params=FC[2:], dfn_str=dfn_str, wfn_str=wfn_str), FC[0]
+
+
+def gpcov_to_full_cov(cov: GPCov, noise_var) -> torch.Tensor:
+    """The inverse of :func:`full_cov_to_gpcov`: the [1, 2 + k] row."""
+    nv = torch.as_tensor(noise_var, dtype=cov.wfn_params.dtype,
+                         device=cov.wfn_params.device).reshape(1)
+    return torch.cat([nv, cov.wfn_params, cov.dfn_params]).reshape(1, -1)

@@ -16,6 +16,15 @@ thetas [R, ntheta] and return [R]: the replicas are re-blocked one by one
 and then folded into the objective's kernel batch
 (:func:`gprf_torch.model.objective.gprf_ll_schur`), so one gradient of the
 sum gives each replica its own gradient.
+
+Past m = 512 the losses chunk the pair pass by 64 edges, recomputing each
+chunk's forward in the backward, as the reference does (its chunk sweep
+at the 80k shapes chose 64); ``pair_chunk`` sets another chunk.
+
+:func:`fused_grid_objective` and :func:`fused_grid_value_and_grad` are the
+reference's functional forms of the grid task-x objective, with
+``pair_mode`` "schur" or "joint" (the parity oracle,
+:func:`gprf_torch.model.objective.gprf_ll`).
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ import numpy as np
 import torch
 
 from gprf_torch.kernels.gpcov import GPCov
-from gprf_torch.model.objective import GPRFParams, gprf_ll_schur
+from gprf_torch.model.objective import GPRFParams, _value_and_grad, gprf_ll, gprf_ll_schur
 from gprf_torch.ops.mvn import KERNEL_OPS, Ops
 from gprf_torch.partition.rpc_device import FlatRPCTree, assign_blocks_rpc
 
@@ -54,6 +63,62 @@ def assemble_layout(blocks, B: int, m: int):
     assignment = slots[:, :m]
     mask = torch.arange(m, device=dev)[None, :] < counts[:, None]
     return assignment, mask, counts.max() > m
+
+
+def grid_labels(X, centers):
+    """Each point's nearest center, labels [..., n] of X [..., n, dx]."""
+    scores = -2.0 * (X @ centers.T) + torch.sum(centers * centers, dim=1)
+    return torch.argmin(scores, dim=-1)
+
+
+def fused_grid_objective(params: GPRFParams, Y, centers, edges, unary_weights, X_obs_flat,
+                         obs_std, m: int, dfn_str: str = "euclidean", wfn_str: str = "se",
+                         pair_mode: str = "schur", ops: Ops = KERNEL_OPS):
+    """(ll + X prior, overflow) of the grid partition with ``centers``
+    [B, dx]: the nearest-center re-block outside the graph, then the Schur
+    form (``pair_mode="schur"``, over ``ops``) or the joint form
+    (``"joint"``, through ``torch.linalg``), and the Gaussian prior of X
+    around ``X_obs_flat``."""
+    if pair_mode not in ("schur", "joint"):
+        raise ValueError(f"unknown pair_mode {pair_mode!r}: 'schur' or 'joint'")
+    X = params.X
+    assignment, mask, overflow = assemble_layout(grid_labels(X.detach(), centers),
+                                                 centers.shape[0], m)
+    pair_weights = torch.ones(edges.shape[0], dtype=X.dtype, device=X.device)
+    if pair_mode == "schur":
+        ll = gprf_ll_schur(params, Y, assignment, mask, edges, unary_weights, pair_weights,
+                           dfn_str=dfn_str, wfn_str=wfn_str, ops=ops)
+    else:
+        ei, ej = edges[:, 0].long(), edges[:, 1].long()
+        ll = gprf_ll(params, Y, assignment, mask, torch.cat([assignment[ei], assignment[ej]], 1),
+                     torch.cat([mask[ei], mask[ej]], 1), unary_weights, pair_weights,
+                     dfn_str=dfn_str, wfn_str=wfn_str)
+    r = (X.reshape(-1) - X_obs_flat) / obs_std
+    n_flat = X_obs_flat.shape[0]
+    prior = -0.5 * torch.sum(r * r) - 0.5 * n_flat * math.log(2 * math.pi * obs_std**2)
+    return ll + prior, overflow
+
+
+def fused_grid_value_and_grad(params: GPRFParams, Y, centers, edges, unary_weights, X_obs_flat,
+                              obs_std, m: int, dfn_str: str = "euclidean", wfn_str: str = "se",
+                              grad_cov: bool = False, pair_mode: str = "schur",
+                              ops: Ops = KERNEL_OPS):
+    """(nll, ngrad_flat [n dx], gradCov [2 + k], overflow) of
+    :func:`fused_grid_objective`: the loss and its X gradient negated, and
+    the hyperparameters' gradient of ll + prior, [d noise_var, d
+    signal_var, d lengthscales] (zeros unless ``grad_cov``), as the
+    reference returns them."""
+    overflow = []
+
+    def objective(p):
+        ll, flag = fused_grid_objective(p, Y, centers, edges, unary_weights, X_obs_flat, obs_std,
+                                        m, dfn_str=dfn_str, wfn_str=wfn_str, pair_mode=pair_mode,
+                                        ops=ops)
+        overflow.append(flag)
+        return ll
+
+    ll, gX, gC = _value_and_grad(objective, params, True, grad_cov)
+    return -ll, -gX.reshape(-1), gC.reshape(-1), overflow[0]
 
 
 def block_counts(blocks, B: int):
@@ -89,8 +154,10 @@ class FusedSyntheticGPRF:
     ``ops`` picks the leaf primitives: the kernels (default) or their plain
     twins under PyTorch's autograd, for comparison.  ``mvn_inv`` and
     ``unary_doubling`` pick a route of the objective
-    (:mod:`gprf_torch.model.objective`); both default off.  Like ``ops``,
-    they are attributes that each new loss reads when it is made.
+    (:mod:`gprf_torch.model.objective`); both default off.  ``pair_chunk``
+    chunks the pair pass (default: 64 edges past m = 512, else none;
+    :attr:`loss_pair_chunk`).  Like ``ops``, they are attributes that each
+    new loss reads when it is made.
     """
 
     COV_SCALE = 5.0
@@ -98,7 +165,8 @@ class FusedSyntheticGPRF:
     def __init__(self, X0, Y, edges, X_obs, obs_std, cov: GPCov, noise_var,
                  task: str = "x", C0=None, centers=None, rpc_tree=None, m=None, *,
                  device: torch.device | str, dtype: torch.dtype, acc_dtype=None,
-                 ops: Ops = KERNEL_OPS, mvn_inv: bool = False, unary_doubling: bool = False):
+                 ops: Ops = KERNEL_OPS, mvn_inv: bool = False, unary_doubling: bool = False,
+                 pair_chunk: int | None = None):
         if task not in ("x", "cov", "xcov"):
             raise ValueError(f"unknown task {task!r}")
         if (centers is None) == (rpc_tree is None):
@@ -110,6 +178,7 @@ class FusedSyntheticGPRF:
         self.ops = ops
         self.mvn_inv = mvn_inv
         self.unary_doubling = unary_doubling
+        self.pair_chunk = pair_chunk
         self.Y = torch.tensor(np.asarray(Y), dtype=dtype, device=device)
         self.X0 = np.asarray(X0, dtype=np.float64)
         self.shape = self.X0.shape
@@ -152,9 +221,7 @@ class FusedSyntheticGPRF:
         constant in X): the nearest center, or the RPC median replay."""
         if self.kind == "rpc":
             return assign_blocks_rpc(X, self.rpc_arrays, self._rpc.depth, self._rpc.n_nodes)
-        c = self.centers
-        scores = -2.0 * (X @ c.T) + torch.sum(c * c, dim=1)
-        return torch.argmin(scores, dim=-1)
+        return grid_labels(X, self.centers)
 
     def _assign_host(self, X):
         X = torch.as_tensor(np.asarray(X), dtype=self.dtype, device=self.device)
@@ -212,6 +279,14 @@ class FusedSyntheticGPRF:
     def grow_capacity(self):
         self.m += 16
 
+    @property
+    def loss_pair_chunk(self) -> int | None:
+        """The pair chunk of the losses made at the current m: the given
+        one, else the reference's wide-m default, 64 edges past m = 512."""
+        if self.pair_chunk is None and self.m > 512:
+            return 64
+        return self.pair_chunk
+
     def _unpack(self, theta, X_fixed):
         """Each replica's X [R, n, dx] from thetas [R, ntheta]."""
         nflat = int(np.prod(self.shape))
@@ -245,7 +320,8 @@ class FusedSyntheticGPRF:
         cov_scale, obs_std = self.COV_SCALE, self.obs_std
         X_fixed = torch.as_tensor(self.X0, dtype=dtype, device=dev)
         acc_dtype, ops = self.acc_dtype, self.ops
-        routes = dict(mvn_inv=self.mvn_inv, unary_doubling=self.unary_doubling)
+        routes = dict(mvn_inv=self.mvn_inv, unary_doubling=self.unary_doubling,
+                      pair_chunk=self.loss_pair_chunk)
 
         def objective(theta):
             th = theta.reshape(-1, theta.shape[-1])
@@ -294,12 +370,17 @@ class FusedSyntheticGPRF:
 
 class FusedGridGPRF(FusedSyntheticGPRF):
     """Grid task=x specialization with the scipy-driver bridge
-    :meth:`value_and_grad` (objective + gradient + capacity growth)."""
+    :meth:`value_and_grad` (objective + gradient + capacity growth).  It
+    carries the Schur form only; the joint form is
+    :func:`fused_grid_objective`'s ``pair_mode="joint"``."""
 
     def __init__(self, X0, Y, centers, edges, X_obs, obs_std, cov: GPCov, noise_var,
-                 m=None, *, device: torch.device | str, dtype: torch.dtype,
-                 acc_dtype=None, ops: Ops = KERNEL_OPS, mvn_inv: bool = False,
-                 unary_doubling: bool = False):
+                 m=None, pair_mode: str | None = None, *, device: torch.device | str,
+                 dtype: torch.dtype, acc_dtype=None, ops: Ops = KERNEL_OPS,
+                 mvn_inv: bool = False, unary_doubling: bool = False):
+        if pair_mode not in (None, "schur"):
+            raise ValueError(f"unsupported pair_mode {pair_mode!r}: use 'schur' (the joint "
+                             "form is fused_grid_objective's pair_mode='joint')")
         super().__init__(X0, Y, edges, X_obs, obs_std, cov, noise_var, task="x",
                          centers=centers, m=m, device=device, dtype=dtype,
                          acc_dtype=acc_dtype, ops=ops, mvn_inv=mvn_inv,

@@ -16,7 +16,8 @@ driver's clip is a heuristic for scipy's L-BFGS-B).
 
 As in :mod:`gprf_torch.model.fused`, the losses take theta [ntheta] or R
 replicas [R, ntheta], and ``ops``, ``mvn_inv`` and ``unary_doubling`` pick
-the leaf primitives and the route of the objective.
+the leaf primitives and the route of the objective.  ``pair_chunk`` chunks
+the pair pass; unlike the synthetic engine's, it has no default (none).
 """
 
 from __future__ import annotations
@@ -47,10 +48,12 @@ class FusedSeismicGPRF:
     def __init__(self, X0, Y, tree, edges, prior_means, prior_std, cov: GPCov, noise_var,
                  task: str = "xcov", m: int | None = None, depth_scale: float = 100.0, *,
                  device: torch.device | str, dtype: torch.dtype, acc_dtype=None,
-                 ops: Ops = KERNEL_OPS, mvn_inv: bool = False, unary_doubling: bool = False):
+                 ops: Ops = KERNEL_OPS, mvn_inv: bool = False, unary_doubling: bool = False,
+                 pair_chunk: int | None = None):
         if task not in ("x", "cov", "xcov"):
             raise ValueError(f"unknown task {task!r}")
         self.task = task
+        self.pair_chunk = pair_chunk
         self.device = torch.device(device)
         self.dtype = dtype
         self.acc_dtype = acc_dtype
@@ -183,7 +186,8 @@ class FusedSeismicGPRF:
         base_cov, noise_var = self.cov, self.noise_var
         prior_means, prior_std = self.prior_means, self.prior_std
         acc_dtype, ops = self.acc_dtype, self.ops
-        routes = dict(mvn_inv=self.mvn_inv, unary_doubling=self.unary_doubling)
+        routes = dict(mvn_inv=self.mvn_inv, unary_doubling=self.unary_doubling,
+                      pair_chunk=self.pair_chunk)
         cov_means = torch.tensor(_COV_PRIOR_MEANS, dtype=dtype, device=dev)
         # the location prior's normalization, summed over n // 3 events
         x_norm = 0.5 * (n // 3) * (3 * _LOG2PI + float(torch.sum(torch.log(prior_std**2))))

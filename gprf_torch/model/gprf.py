@@ -5,11 +5,14 @@
 ``subset_llgrad``, ``llgrad_unary`` / ``llgrad_joint`` and
 ``train_predictor`` keep the reference's
 contracts, so the optimization driver and the analysis translate
-one-to-one.  All compute is the batched Schur-form objective
-(:mod:`gprf_torch.model.objective`) over a padded
+one-to-one.  All compute is the batched objective
+(:mod:`gprf_torch.model.objective`): the Schur form (``form="schur"``,
+the default) or the joint form, the reference's parity oracle
+(``form="joint"``), over a padded
 :class:`~gprf_torch.partition.layout.BlockLayout`; ``update_X`` replays the
 partitioner's fixed splits on the host and uploads the gather tensors
-again.
+again.  Wide batches are chunked under the reference's memory budget
+(:func:`_auto_chunk`), which decides where the sums split.
 
 The model computes on the ``device`` and at the ``dtype`` it is given and
 decides nothing itself: the kernel wrappers launch their CUDA kernels on
@@ -23,10 +26,24 @@ import torch
 
 from gprf_torch.kernels.gpcov import GPCov
 from gprf_torch.model.neighbors import compute_neighbors as _compute_neighbors
-from gprf_torch.model.objective import GPRFParams, gprf_value_and_grad_schur
+from gprf_torch.model.objective import (GPRFParams, gprf_value_and_grad,
+                                        gprf_value_and_grad_schur)
 from gprf_torch.model.predict import train_predictor
 from gprf_torch.ops.mvn import KERNEL_OPS, Ops
 from gprf_torch.partition.layout import BlockLayout
+
+_MB = 1024 * 1024
+
+
+def _auto_chunk(n_items: int, width: int, budget_bytes: int = 512 * _MB) -> int | None:
+    """The chunk of a batch of ``n_items`` [width, width] terms that keeps
+    ~10 live float32 buffers of the chunk within the budget; None: the
+    whole batch at once.  The reference's rule, kept exactly: it decides
+    where the objective's sums split."""
+    per_item = width * width * 4 * 10
+    if n_items * per_item <= budget_bytes:
+        return None
+    return max(8, budget_bytes // per_item)
 
 
 class GPRF:
@@ -41,6 +58,9 @@ class GPRF:
     neighbor_threshold : max-correlation threshold for adding an edge
         (1.0 => no edges => independent local GPs)
     block_idxs / neighbors : optionally precomputed partition / edge list
+    unary_chunk / pair_chunk : the chunks of the block and pair batches
+        (default: :func:`_auto_chunk`; ``unary_chunk`` serves the joint form)
+    form : "schur" (default) or "joint", the parity oracle
     device, dtype : where and at which width the objective is computed
     ops : the leaf primitives, the kernels (default) or their plain twins
     """
@@ -48,16 +68,16 @@ class GPRF:
     def __init__(self, X, Y, block_fn, cov: GPCov, noise_var, kernelized: bool = False,
                  dy: int | None = None, nonstationary: bool = False,
                  neighbor_threshold: float = 1e-3, block_idxs=None, neighbors=None,
-                 pad_multiple: int = 8, form: str = "schur", mesh=None, *,
+                 pad_multiple: int = 8, unary_chunk: int | None = None,
+                 pair_chunk: int | None = None, form: str = "schur", mesh=None, *,
                  device: torch.device | str, dtype: torch.dtype, ops: Ops = KERNEL_OPS):
         if nonstationary:
             raise NotImplementedError("nonstationary GPRF is not supported (nor by gprf_tpu)")
         if kernelized:
             raise NotImplementedError("second-moment observations (kernelized=True) are not "
                                       "ported yet (ROADMAP, still to port: model/kernelized.py)")
-        if form != "schur":
-            raise NotImplementedError(f"form={form!r}: only the Schur form is ported (ROADMAP, "
-                                      "still to port: the joint form gprf_ll)")
+        if form not in ("schur", "joint"):
+            raise ValueError(f"unknown form {form!r}: 'schur' or 'joint'")
         if mesh is not None:
             raise NotImplementedError("multi-device llgrad is not ported yet (ROADMAP, still to "
                                       "port: parallel/sharding.py)")
@@ -72,7 +92,9 @@ class GPRF:
         self.block_fn = block_fn
         self.neighbor_threshold = float(neighbor_threshold)
         self.pad_multiple = pad_multiple
-        self.form = form
+        self._unary_chunk = unary_chunk
+        self._pair_chunk = pair_chunk
+        self.form = form  # "schur": the default; "joint": the parity oracle
 
         if block_idxs is None:
             block_idxs = block_fn(self.X)
@@ -150,10 +172,17 @@ class GPRF:
         params = GPRFParams(X=self._tensor(X), wfn_params=self.cov.wfn_params,
                             dfn_params=self.cov.dfn_params,
                             noise_var=self._tensor(self.noise_var))
-        ll, gX, gC = gprf_value_and_grad_schur(
-            params, Y, arrays["assignment"], arrays["mask"], arrays["edges"],
-            arrays["unary_weights"], arrays["pair_weights"], dfn_str=self.cov.dfn_str,
-            wfn_str=self.cov.wfn_str, grad_X=grad_X, grad_cov=grad_cov, ops=self.ops)
+        common = dict(dfn_str=self.cov.dfn_str, wfn_str=self.cov.wfn_str, grad_X=grad_X,
+                      grad_cov=grad_cov, pair_chunk=self._pair_chunk_for(arrays))
+        if self.form == "joint":
+            ll, gX, gC = gprf_value_and_grad(
+                params, Y, arrays["assignment"], arrays["mask"], arrays["pair_assignment"],
+                arrays["pair_mask"], arrays["unary_weights"], arrays["pair_weights"],
+                unary_chunk=self._unary_chunk_for(arrays), **common)
+        else:
+            ll, gX, gC = gprf_value_and_grad_schur(
+                params, Y, arrays["assignment"], arrays["mask"], arrays["edges"],
+                arrays["unary_weights"], arrays["pair_weights"], ops=self.ops, **common)
         # one transfer for the three results; float64 copies, since the
         # drivers add priors to them in place
         flat = torch.cat([ll.reshape(1).to(gX.dtype), gX.reshape(-1), gC.reshape(-1)])
@@ -172,6 +201,19 @@ class GPRF:
                                       "(ROADMAP, still to port: sparse/)")
         arrays = self._device_arrays() if local else self._all_pairs_device_arrays()
         return self._value_and_grad(self.X, self._Y_dev, arrays, grad_X, grad_cov)
+
+    def _unary_chunk_for(self, arrays):
+        if self._unary_chunk is not None:
+            return self._unary_chunk
+        return _auto_chunk(*arrays["assignment"].shape)
+
+    def _pair_chunk_for(self, arrays):
+        """The pair chunk; by default from the budget at the stacked pair's
+        width 2m, in both forms, as the reference chooses it."""
+        if self._pair_chunk is not None:
+            return self._pair_chunk
+        return _auto_chunk(arrays["pair_assignment"].shape[0],
+                           max(arrays["pair_assignment"].shape[-1], 1))
 
     def _all_pairs_device_arrays(self):
         if self._all_pairs_arrays is None:

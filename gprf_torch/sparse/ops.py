@@ -1,6 +1,6 @@
-"""Sparse kernel matrices and the prior draw for large n (mirror of
-``sparse_kernel_matrix``, ``SparseFactor`` and ``sample_y_sparse`` in
-``gprf_tpu/sparse/ops.py``).
+"""Sparse kernel matrices and the prior draws for large n (mirror of
+``sparse_kernel_matrix``, ``SparseFactor``, ``sample_y_sparse`` and
+``sample_y_banded`` in ``gprf_tpu/sparse/ops.py``).
 
 The kernel's support is truncated at ``max_scaled_dist`` scaled
 lengthscales; the surviving pattern comes from the native kd-tree range
@@ -8,12 +8,21 @@ query, and the sparse SPD matrix is factored by the native up-looking
 Cholesky after an RCM fill-reducing permutation
 (:mod:`gprf_torch.sparse.native`).  Host code, float64: the same source,
 permutation and normal draws give the reference's Y.
+
+Past 20,000 points the sparse factor's fill-in is impractical on one core,
+so the exact draw there is banded: the same RCM order makes the truncated
+kernel a band matrix that LAPACK's banded Cholesky factors at dense-BLAS
+speed (:func:`sample_y_banded`).
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
+import scipy.linalg
 import scipy.sparse
+from scipy.linalg.blas import dtbmv
 
 from gprf_torch.kernels.gpcov import GPCov
 from gprf_torch.kernels.hostnp import AVG_EARTH_RADIUS_KM, _host
@@ -120,3 +129,54 @@ def sample_y_sparse(X, cov: GPCov, noise_var, yd, max_scaled_dist=4.0, *, rng):
     K = sparse_kernel_matrix(X, cov, max_scaled_dist=max_scaled_dist, noise_var=noise_var)
     factor = SparseFactor(K)
     return factor.lmult_prior_sample(rng.standard_normal((K.shape[0], yd)))
+
+
+def sample_y_banded(X, cov: GPCov, noise_var, yd, max_scaled_dist=4.0, *, rng, verbose=False):
+    """The exact draw from N(0, K_truncated + noise_var I), [n, yd], by a
+    banded Cholesky: the truncated pattern in RCM order stored as LAPACK's
+    lower band, factored by ``scipy.linalg.cholesky_banded`` (should it
+    fail, again with a diagonal jitter of 1e-8 times the mean diagonal,
+    growing tenfold a try) and multiplied into the normal draws of ``rng``
+    by ``dtbmv``,
+    then permuted back: P^T L z.  The same law as :func:`sample_y_sparse`,
+    which factors the same matrix another way."""
+    t0 = time.time()
+    K = sparse_kernel_matrix(X, cov, max_scaled_dist=max_scaled_dist, noise_var=noise_var)
+    n = K.shape[0]
+    perm = rcm_order(n, K.indptr.astype(np.int64), K.indices.astype(np.int32))
+    rank = np.empty(n, dtype=np.int64)
+    rank[perm] = np.arange(n)
+    Kc = K.tocoo()
+    pr, pc = rank[Kc.row], rank[Kc.col]
+    lower = pr >= pc
+    pr, pc, vals = pr[lower], pc[lower], Kc.data[lower]
+    del Kc, K
+    bw = int((pr - pc).max()) if len(pr) else 0
+    if verbose:
+        print("sample_y_banded: n=%d nnz(tril)=%d rcm bandwidth=%d (%.1fs)"
+              % (n, len(vals), bw, time.time() - t0))
+    ab = np.zeros((bw + 1, n), dtype=np.float64)
+    ab[pr - pc, pc] = vals
+    del pr, pc, vals
+    jitter = 0.0
+    for attempt in range(7):
+        try:
+            c = scipy.linalg.cholesky_banded(ab, lower=True, check_finite=False)
+            break
+        except np.linalg.LinAlgError:
+            new_jitter = max(ab[0].mean() * 1e-8 * (10.0**attempt), 1e-12)
+            ab[0] += new_jitter - jitter
+            jitter = new_jitter
+    else:
+        raise np.linalg.LinAlgError("banded kernel matrix not positive definite")
+    if verbose:
+        print("sample_y_banded: dpbtrf done (%.1fs)" % (time.time() - t0))
+    z = rng.standard_normal((n, yd))
+    yp = np.empty((n, yd), dtype=np.float64)
+    for j in range(yd):
+        yp[:, j] = dtbmv(bw, c, np.ascontiguousarray(z[:, j]), lower=1)
+    out = np.empty_like(yp)
+    out[perm] = yp
+    if verbose:
+        print("sample_y_banded: draw complete (%.1fs)" % (time.time() - t0))
+    return out

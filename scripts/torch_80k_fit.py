@@ -1,0 +1,247 @@
+#!/usr/bin/env python3
+"""The paper's n = 80,000 synthetic experiment on the card, whole fits.
+
+    python3 scripts/torch_80k_fit.py [--sampler vecchia|exact] [--local_dist 0.1 1.0]
+                                     [--max_iters N] [--ftol F] [--memory] [--host_seconds S]
+                                     [--plain float32 float64] [--keep DIR]
+
+Runs the 80k command (``--ntrain 80000 --ntest 500 --nblocks 100 --lscale
+0.021213 --obs_std 0.007071 --yd 50 --task x``, seed 0) through
+``gprf_torch.cli.gprfopt.main`` on the device engine, once per
+``--local_dist`` (0.1: GPRF-100; 1.0: Local-100), into a temporary
+GPRF_EXPERIMENTS, all fits on one draw: ``--sampler vecchia`` is the
+Vecchia draw (GPRF_SAMPLER=vecchia, the draw of the JAX package's
+docs/runs/gprf80k_device and local80k_100_device), ``exact`` the exact
+banded draw (GPRF_SAMPLER unset, its docs/runs/gprf80k_100_yexact).
+
+``--memory`` first measures one loss+grad of the device engine at X_obs:
+peak memory (``torch.cuda.max_memory_allocated``) and host-clock ms, at 1
+and 4 folded replicas, with the pair pass chunked by 64 (the default past
+m = 512) and unchunked; a measurement that runs out of memory is recorded
+as such.  ``--host_seconds`` ends with the host engine (scipy over
+``GPRF.llgrad``) on the same data for that many seconds.  ``--plain``
+adds GPRF-100 on the device engine on the plain twins at each width given
+(the kernels are float32 only), the same loop and stall rule, to tell
+the kernels' share of a fit's result from float32's; its mad is computed
+at every checkpointed X.  ``--ftol`` passes the device engine's stall
+threshold on (0: never stall).  ``--keep DIR`` copies each fit's log.txt
+and results.txt into DIR.
+
+Prints one JSON line per measurement and per fit (the seconds of the draw,
+the fit and the analysis, the iterations, ms per iteration, the capacity m
+at the end, the first and final mad, the objective at the start, the end
+and the true latents) with the card's name and power limit.  Needs one
+CUDA device.
+"""
+
+import argparse
+import contextlib
+import io
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+FLAGS = ["--ntrain", "80000", "--ntest", "500", "--nblocks", "100", "--lscale", "0.021213",
+         "--obs_std", "0.007071", "--yd", "50", "--task", "x"]
+DATA = dict(n=80500, ntrain=80000, lscale=0.021213, obs_std=0.007071, yd=50, seed=0,
+            noise_var=0.01)
+
+
+def emit(record, card):
+    print(json.dumps(dict(record, card=card)), flush=True)
+
+
+def memory(card):
+    """Peak memory and ms of one loss+grad at X_obs, R = 1 and 4, chunked
+    by 64 and not."""
+    import numpy as np
+    import torch
+
+    from gprf_torch.data.sampled import sample_data
+    from gprf_torch.model.fused import FusedSyntheticGPRF
+    from gprf_torch.optim.lbfgs import value_and_grad
+    from gprf_torch.partition.grid import grid_centers
+
+    t0 = time.perf_counter()
+    data = sample_data(centers=grid_centers(100), **DATA)
+    emit({"what": "draw", "seconds": time.perf_counter() - t0,
+          "sampler": os.environ.get("GPRF_SAMPLER", "")}, card)
+    fused = FusedSyntheticGPRF(data.X_obs, data.SY, data.neighbors, data.X_obs, data.obs_std,
+                               data.cov, data.noise_var, task="x",
+                               centers=np.asarray(data.centers), device="cuda",
+                               dtype=torch.float32, acc_dtype=torch.float64)
+    E = int(fused.edges.shape[0])
+    x = data.X_obs.reshape(-1)
+    rng = np.random.default_rng(1)
+    for R in (1, 4):
+        xs = x if R == 1 else np.stack([x] + [x + rng.standard_normal(x.shape) * data.obs_std
+                                              for _ in range(R - 1)])
+        theta = torch.as_tensor(xs, dtype=torch.float32, device="cuda")
+        for chunk in (64, None):
+            fused.pair_chunk = E if chunk is None else chunk  # a chunk of all edges: none
+            loss = fused.loss_fn()
+            record = {"what": "memory", "replicas": R, "pair_chunk": chunk, "m": fused.m,
+                      "edges": E}
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            try:
+                value_and_grad(loss, theta)  # the first call warms up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                value_and_grad(loss, theta)
+                torch.cuda.synchronize()
+                record.update(ms=(time.perf_counter() - t0) * 1e3)
+                record.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                              above_resident_gb=(torch.cuda.max_memory_allocated() - resident)
+                              / 1e9)
+            except torch.cuda.OutOfMemoryError as e:
+                record.update(out_of_memory=str(e).splitlines()[0])
+            del loss
+            emit(record, card)
+    fused.pair_chunk = None
+
+
+def keep_files(d, keep, tag):
+    if keep:
+        os.makedirs(os.path.join(keep, tag), exist_ok=True)
+        for name in ("log.txt", "results.txt"):
+            if os.path.exists(os.path.join(d, name)):
+                shutil.copy(os.path.join(d, name), os.path.join(keep, tag, name))
+
+
+def fit(local_dist, max_iters, ftol, card, keep):
+    from gprf_torch.analysis.results import load_final_results, load_results
+    from gprf_torch.cli import gprfopt
+    from gprf_torch.ops import mvn
+
+    argv = FLAGS + ["--local_dist", str(local_dist), "--engine", "device"]
+    if max_iters is not None:
+        argv += ["--max_iters", str(max_iters)]
+    if ftol is not None:
+        argv += ["--ftol", str(ftol)]
+    d = gprfopt.exp_dir(gprfopt.build_parser().parse_args(argv))
+    out = io.StringIO()
+    mvn.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        seconds = gprfopt.main(argv)
+    sys.stderr.write(out.getvalue())
+    reported = next(line for line in out.getvalue().splitlines()
+                    if line.startswith("device engine: B = "))
+    B, E, m_end = (int(w) for w in reported.replace(",", " ").split() if w.isdigit())
+    results = load_results(d)
+    final, true_row = load_final_results(d)
+    iterations = int(final["step"]) + 1
+    emit({"what": "fit", "local_dist": local_dist,
+          "sampler": os.environ.get("GPRF_SAMPLER", "") or "exact", "blocks": B, "edges": E,
+          "m_end": m_end, "iterations": iterations,
+          "ms_per_iteration": seconds["fit_s"] / iterations * 1e3,
+          "mad_first": float(results[0, 4]), "mad_final": float(final["mad"]),
+          "objective_first": float(results[0, 2]), "objective_final": float(final["mll"]),
+          "objective_true_x": float(true_row["mll"]), "seconds": seconds,
+          "launches": dict(mvn.launch_counts), "ftol": ftol}, card)
+    keep_files(d, keep, "%s_%s_%s" % (os.environ.get("GPRF_SAMPLER", "") or "exact", local_dist,
+                                       "default" if ftol is None else "ftol%g" % ftol))
+
+
+def fit_plain(dtype_name, max_iters, ftol, card, keep):
+    """GPRF-100 on the device engine on the plain twins at one width."""
+    import numpy as np
+    import torch
+
+    from gprf_torch.data.sampled import sample_data
+    from gprf_torch.model.fused import FusedSyntheticGPRF
+    from gprf_torch.ops import mvn
+    from gprf_torch.optim.driver import load_log
+    from gprf_torch.optim.lbfgs import do_optimization_fused
+    from gprf_torch.partition.grid import grid_centers
+
+    data = sample_data(centers=grid_centers(100), **DATA)
+    fused = FusedSyntheticGPRF(data.X_obs, data.SY, data.neighbors, data.X_obs, data.obs_std,
+                               data.cov, data.noise_var, task="x",
+                               centers=np.asarray(data.centers), device="cuda",
+                               dtype=getattr(torch, dtype_name), acc_dtype=torch.float64,
+                               ops=mvn.PLAIN_OPS)
+    d = os.path.join(os.environ["GPRF_EXPERIMENTS"], "plain_" + dtype_name)
+    os.makedirs(d)
+    loop = dict(max_iters=400 if max_iters is None else max_iters)
+    if ftol is not None:
+        loop["ftol"] = ftol
+    t0 = time.perf_counter()
+    do_optimization_fused(d, fused, data.X_obs, **loop)
+    fit_s = time.perf_counter() - t0
+    steps, _, values = load_log(d)
+    mads = {}
+    for name in sorted(f for f in os.listdir(d) if f.startswith("step_") and f.endswith("_X.npy")):
+        mads[int(name[5:10])] = data.mean_distance(np.load(os.path.join(d, name)).reshape(-1))
+    with open(os.path.join(d, "results.txt"), "w") as f:
+        f.writelines("%d %.2f %.8f\n" % (step, values[i], mads.get(step, np.nan))
+                     for i, step in enumerate(steps))
+    last = max(mads)
+    emit({"what": "fit_plain_" + dtype_name,
+          "sampler": os.environ.get("GPRF_SAMPLER", "") or "exact",
+          "iterations": len(steps), "ms_per_iteration": fit_s / len(steps) * 1e3,
+          "objective_first": float(values[0]), "objective_final": float(values[-1]),
+          "mad_final": mads[last], "mad_at": {str(k): v for k, v in mads.items()},
+          "m_end": fused.m, "ftol": ftol}, card)
+    keep_files(d, keep, "%s_0.1_plain_%s_%s" % (os.environ.get("GPRF_SAMPLER", "") or "exact",
+                                                 dtype_name,
+                                                 "default" if ftol is None else "ftol%g" % ftol))
+
+
+def host(seconds_, card):
+    from gprf_torch.cli import gprfopt
+    from gprf_torch.optim.driver import load_log
+
+    argv = FLAGS + ["--local_dist", "0.1", "--engine", "host", "--maxsec", str(seconds_)]
+    d = gprfopt.exp_dir(gprfopt.build_parser().parse_args(argv))
+    with contextlib.redirect_stdout(sys.stderr):
+        seconds = gprfopt.main(argv)
+    steps, _, values = load_log(d)
+    emit({"what": "host_engine", "evaluations": len(steps),
+          "ms_per_evaluation": seconds["fit_s"] / len(steps) * 1e3,
+          "objective": [float(values[0]), float(values.max())], "seconds": seconds}, card)
+
+
+def main(argv=None):
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--sampler", choices=["vecchia", "exact"], default="vecchia")
+    parser.add_argument("--local_dist", type=float, nargs="*", default=[0.1, 1.0])
+    parser.add_argument("--max_iters", type=int, default=None)
+    parser.add_argument("--memory", action="store_true")
+    parser.add_argument("--host_seconds", type=int, default=0)
+    parser.add_argument("--ftol", type=float, default=None)
+    parser.add_argument("--plain", nargs="*", default=[], choices=["float32", "float64"])
+    parser.add_argument("--keep", default="")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_80k_fit.py: no CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    if args.sampler == "vecchia":
+        os.environ["GPRF_SAMPLER"] = "vecchia"
+    else:
+        os.environ.pop("GPRF_SAMPLER", None)
+    with tempfile.TemporaryDirectory() as base:
+        os.environ["GPRF_EXPERIMENTS"] = base
+        if args.memory:
+            memory(card)
+        for local_dist in args.local_dist:
+            fit(local_dist, args.max_iters, args.ftol, card, args.keep)
+        for dtype_name in args.plain:
+            fit_plain(dtype_name, args.max_iters, args.ftol, card, args.keep)
+        if args.host_seconds:
+            host(args.host_seconds, card)
+
+
+if __name__ == "__main__":
+    main()

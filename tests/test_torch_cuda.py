@@ -594,6 +594,102 @@ def test_route_wrappers_reject_what_the_kernels_do_not_take(dev):
     assert mvn.launch_counts["cholesky"] == 1 and mvn.launch_counts["mvn_ll_inv"] == 1
 
 
+@pytest.mark.parametrize("m", [872, 888])
+def test_wide_splits_on_card_match_twin(dev, m):
+    """chol_inv_split and mvn_ll_split at the 80k experiment's widths (three
+    and four recursion levels) over the kernels against the float64 twins,
+    forward and backward (symmetric parts of d/dK: a split reads K's lower
+    blocks only), on ragged blocks, with their leaves' launches."""
+    rng = np.random.default_rng(m)
+    B, dy = 3, 50
+    n_active = [m, m - 20, m - 300]
+    K = torch.as_tensor(_spd(rng, B, m, n_active), device=dev)
+    Y = torch.as_tensor(rng.normal(size=(B, m, dy)), device=dev)
+    Y = Y * (torch.arange(m, device=dev)[None, :, None] < torch.tensor(n_active, device=dev)[:, None, None])
+    na = torch.tensor(n_active, device=dev, dtype=torch.float64)
+    cots = [torch.as_tensor(rng.normal(size=(B, m, m)), device=dev) for _ in range(2)]
+    g_ll = torch.as_tensor(rng.normal(size=(B,)), device=dev)
+
+    def sym(g):
+        return (g + g.mT) / 2
+
+    def chol_inv_grads(f, Kin):
+        Kin = Kin.clone().requires_grad_(True)
+        L, W = f(Kin)
+        (gK,) = torch.autograd.grad((L, W), Kin, [c.to(L.dtype) for c in cots])
+        return L.detach(), W.detach(), sym(gK)
+
+    def mvn_grads(f, Kin, Yin, nin):
+        Kin, Yin = Kin.clone().requires_grad_(True), Yin.clone().requires_grad_(True)
+        ll = f(Kin, Yin, nin)
+        gK, gY = torch.autograd.grad(ll, (Kin, Yin), g_ll.to(ll.dtype))
+        return ll.detach(), sym(gK), gY
+
+    mvn.reset_launch_counts()
+    got = chol_inv_grads(chol_inv_split, K.float())
+    torch.cuda.synchronize()
+    assert mvn.launch_counts["chol_inv"] == 4  # leaves 224/216, nothing in the backward
+    for a, b in zip(got, chol_inv_grads(mvn.chol_inv_plain, K)):
+        _close(a, b, rtol=1e-3 if a is got[2] else RTOL)
+    mvn.reset_launch_counts()
+    got = mvn_grads(mvn_ll_split, K.float(), Y.float(), na.float())
+    torch.cuda.synchronize()
+    assert {k: mvn.launch_counts[k] for k in ("chol_inv", "mvn_ll", "tri_inv")} == {
+        "chol_inv": 4, "mvn_ll": 1, "tri_inv": 1}
+    ref = mvn_grads(lambda *a: mvn.mvn_ll_plain(*a)[0], K, Y, na)
+    _close(got[0], ref[0], rtol=1e-5)
+    _close(got[1], ref[1], rtol=1e-3)
+    _close(got[2], ref[2], rtol=1e-3)
+
+
+@pytest.mark.parametrize("R", [1, 2])
+def test_chunked_schur_loss_on_card_equals_unchunked(dev, R):
+    """pair_chunk=5 on the kernels against the same loss unchunked: the
+    chunks' forwards run again in the backward (K2 twice, K3 once a chunk),
+    and only the summation order differs."""
+    from gprf_torch.model.objective import _schur_ll
+    from gprf_torch.kernels.gpcov import GPCov
+    from gprf_torch.partition.grid import Blocker, grid_centers
+
+    rng = np.random.default_rng(11)
+    n, dy = 900, 50
+    X = rng.uniform(size=(R, n, 2))
+    Y = torch.as_tensor(rng.normal(size=(n, dy)), device=dev, dtype=torch.float32)
+    b = Blocker(grid_centers(16))
+    blocks = b.block_clusters(X[0])
+    m = (max(len(ix) for ix in blocks) + 7) // 8 * 8
+    assignment = np.zeros((16, m), dtype=np.int64)
+    mask = np.zeros((16, m), dtype=bool)
+    for i, ix in enumerate(blocks):
+        assignment[i, :len(ix)] = ix
+        mask[i, :len(ix)] = True
+    edges = np.asarray(b.neighbors(diag_connections=True))
+    counts = np.bincount(edges.reshape(-1), minlength=16)
+    nch = -(-len(edges) // 5)
+
+    def t(a, dt=None):
+        return torch.as_tensor(a, device=dev, dtype=dt)
+
+    out = []
+    for chunk in (None, 5):
+        Xt = t(X, torch.float32).requires_grad_(True)
+        cov = GPCov(wfn_params=t([[1.0]] * R, torch.float32),
+                    dfn_params=t([[0.2, 0.2]] * R, torch.float32))
+        mvn.reset_launch_counts()
+        ll = _schur_ll(Xt, Y, t(np.stack([assignment] * R)), t(np.stack([mask] * R)), t(edges),
+                       t(1.0 - counts, torch.float32), t(np.ones(len(edges)), torch.float32),
+                       cov, t([0.01] * R, torch.float32), acc_dtype=torch.float64,
+                       pair_chunk=chunk)
+        (g,) = torch.autograd.grad(ll.sum(), Xt)
+        torch.cuda.synchronize()
+        out.append((ll.detach().cpu(), g.double().flatten(), dict(mvn.launch_counts)))
+    (v, g, n_whole), (vc, gc, n_chunked) = out
+    assert n_whole["mvn_ll"] == 1 and n_chunked["mvn_ll"] == 2 * nch
+    assert n_chunked["tri_inv"] == nch
+    assert float(((v - vc).abs() / v.abs()).max()) <= 1e-6
+    assert float(g @ gc / (g.norm() * gc.norm())) > 0.999999
+
+
 def _wide_blocks_value_and_grad(dev, dtype, ops, m=248, dy=4):
     """ll and d ll / dX of three blocks of width m (two pairs) on the
     unary-doubling route."""

@@ -102,17 +102,22 @@ def test_crazy_shape_seed_out_of_range_raises():
 
 
 def test_samplers_past_the_dense_limit_are_not_ported_yet(monkeypatch):
-    """The sparse draw up to 20,000 points is ported (tests/test_torch_seismic.py);
-    the banded draw past it and the Vecchia samplers are not."""
+    """Past the dense limit every GPRF_SAMPLER is served and draws the
+    reference's Y from the same seed: with the limit moved down to 200
+    points, "" takes the sparse draw and "vecchia" and "hi" the Vecchia
+    draw at n = 300 (the dispatch at the real sizes is
+    tests/test_torch_large_draw.py's)."""
     assert tsynth.DENSE_SAMPLING_LIMIT == jsynth.DENSE_SAMPLING_LIMIT
-    cov = cov_from_numpy([1.0], [0.1, 0.1], **F64)
-    monkeypatch.delenv("GPRF_SAMPLER", raising=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsynth.sample_y(np.zeros((20001, 2)), cov, 0.01, 2, rng=np.random.RandomState(0))
-    monkeypatch.setenv("GPRF_SAMPLER", "vecchia")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsynth.sample_y(np.zeros((tsynth.DENSE_SAMPLING_LIMIT, 2)), cov, 0.01, 2,
-                        rng=np.random.RandomState(0))
+    for mod in (tsynth, jsynth):
+        monkeypatch.setattr(mod, "DENSE_SAMPLING_LIMIT", 200)
+    X = np.random.RandomState(1).rand(300, 2)
+    for sampler in ("", "vecchia", "hi"):
+        monkeypatch.setenv("GPRF_SAMPLER", sampler)
+        np.random.seed(5)
+        ref = jsynth.sample_y(X, JCov.create([1.0], [0.1, 0.1]), 0.01, 3)
+        got = tsynth.sample_y(X, cov_from_numpy([1.0], [0.1, 0.1], **F64), 0.01, 3,
+                              rng=np.random.RandomState(5))
+        np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-12)
 
 
 @pytest.mark.parametrize("sampler", ["", "vecchia", "hi"])

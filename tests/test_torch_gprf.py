@@ -181,11 +181,13 @@ def test_the_models_leaves_are_an_option(data):
     _close(a[2], b[2], rtol=1e-9)
 
 
-@pytest.mark.parametrize("option", [dict(kernelized=True, dy=4), dict(form="joint"),
+@pytest.mark.parametrize("option", [dict(kernelized=True, dy=4), dict(form="dense"),
                                     dict(mesh=object()), dict(nonstationary=True)])
 def test_unported_model_options_raise(data, option):
+    """Options the port does not serve raise; an unknown form is refused as
+    a wrong value (the joint form is served: tests/test_torch_joint.py)."""
     t, _ = data
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError if "form" in option else NotImplementedError):
         TGPRF(t.X_obs, t.SY, t.reblock, t.cov, 0.01, block_idxs=t.block_idxs, neighbors=[],
               **option, **F64)
 

@@ -259,23 +259,26 @@ def test_sample_y_sparse_matches_jax(n, dfn):
 
 def test_sample_y_routes_the_mid_size_draw_to_the_sparse_sampler(monkeypatch):
     """12,000 <= n <= 20,000 with no GPRF_SAMPLER takes the sparse draw, as
-    in the reference; the banded, Vecchia and 'hi' samplers still raise."""
+    in the reference; past it the exact banded draw, and "vecchia" and
+    "hi" the Vecchia draw at any size."""
     calls = []
-    monkeypatch.setattr("gprf_torch.sparse.ops.sample_y_sparse",
-                        lambda X, cov, nv, yd, max_scaled_dist, rng: calls.append(
-                            (len(X), max_scaled_dist)) or "drawn")
+
+    def record(name):
+        return lambda X, *a, **kw: calls.append((name, len(X), kw.get("max_scaled_dist"))) or name
+
+    monkeypatch.setattr("gprf_torch.sparse.ops.sample_y_sparse", record("sparse"))
+    monkeypatch.setattr("gprf_torch.sparse.ops.sample_y_banded", record("banded"))
+    monkeypatch.setattr(tsynth, "sample_y_blocked", record("blocked"))
     tcov, _ = _covs()
     monkeypatch.delenv("GPRF_SAMPLER", raising=False)
     rng = np.random.RandomState(0)
-    assert tsynth.sample_y(np.zeros((12000, 3)), tcov, 0.1, 2, sparse_lscales=6.0, rng=rng) == "drawn"
-    assert tsynth.sample_y(np.zeros((20000, 3)), tcov, 0.1, 2, rng=rng) == "drawn"
-    assert calls == [(12000, 6.0), (20000, 4.0)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsynth.sample_y(np.zeros((20001, 3)), tcov, 0.1, 2, rng=rng)
+    assert tsynth.sample_y(np.zeros((12000, 3)), tcov, 0.1, 2, sparse_lscales=6.0, rng=rng) == "sparse"
+    assert tsynth.sample_y(np.zeros((20000, 3)), tcov, 0.1, 2, rng=rng) == "sparse"
+    assert calls == [("sparse", 12000, 6.0), ("sparse", 20000, 4.0)]
+    assert tsynth.sample_y(np.zeros((20001, 3)), tcov, 0.1, 2, rng=rng) == "banded"
     for sampler in ("vecchia", "hi"):
         monkeypatch.setenv("GPRF_SAMPLER", sampler)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsynth.sample_y(np.zeros((12000, 3)), tcov, 0.1, 2, rng=rng)
+        assert tsynth.sample_y(np.zeros((12000, 3)), tcov, 0.1, 2, rng=rng) == "blocked"
     assert tsynth.DENSE_SAMPLING_LIMIT == jsynth.DENSE_SAMPLING_LIMIT
 
 
