@@ -123,6 +123,27 @@ Phases, each of which raises on failure (exit code 1, no result line):
              less its X prior; K1, K2 and K3 against their twins on every leaf
              shape of this path; peak memory, device-busy ms and launches of one
              loss+grad chunked by 64 and unchunked.
+16. baselines - the GPLVM baselines through ``gprf_torch.cli.gprfopt.main``
+             on the host engine: the truegp suite's data (the cli phase's
+             10,000 + 500 points in one block, local GPs) with
+             ``--gplvm_type titsias`` and ``sparse`` (FITC) at 2,000
+             inducing points for BASELINE_SECONDS each: row 0's mad is
+             X_obs's (0.02482123) and row 0's objective the JAX package's
+             artifacts' (docs/runs/truegp_suite/*_titsias2000,
+             docs/runs/fitc2000_10k) within BASELINE_RTOL, beside the same
+             objective in float64 on the card; the objective rises and the
+             mad falls; ms per evaluation.  Then ``bayesian`` and ``basic``
+             at n = 2,000 (100 inducing points): finite and rising.
+17. refine - ``--refine_iters``: the command line's flagship on the device
+             engine, 40 float32 iterations and 20 of the float64 tail on
+             LINALG_OPS (task x, then xcov for covs.txt), and the seismic
+             command with 10: the log's numbering goes on, the tail's rows
+             end no lower than the float32 loop's last (REFINE_RTOL), no
+             K1-K5 launch inside the tail, ms per float64 iteration.  On the
+             80k phase's data (m = 888): the default cap skips the tail with
+             its message, GPRF_REFINE_MAX_M=1024 runs it 2 steps a dispatch.
+
+The smoke's total seconds are logged before the result lines.
 
 Output: a JSON line describing each kernel (its launches on the main path
 and in the cli, rpc, predict, seismic and eighty phases, its max abs error against
@@ -219,6 +240,33 @@ RTOL_JOINT = 1e-9
 # float64 as the twins in float32 are
 EIGHTY_F32_RTOL = 3.5e-4
 EIGHTY_F32_MIN_COSINE = 0.99927
+# The GPLVM baselines (phase 16): the truegp suite's data, the cli flagship's
+# 10,000 + 500 points in one block with local GPs (docs/runs/truegp_suite), at
+# 2,000 inducing points, each for BASELINE_SECONDS of the host engine
+BASELINE_FLAGS = ["--ntrain", "10000", "--ntest", "500", "--nblocks", "1", "--lscale", "0.06",
+                  "--obs_std", "0.02", "--local_dist", "1.0", "--yd", "50", "--task", "x",
+                  "--engine", "host"]
+BASELINE_INDUCING = 2000
+BASELINE_SECONDS = 15
+# row 0 of the JAX package's artifacts: X_obs's mad, and the objective of
+# docs/runs/truegp_suite/*_titsias2000/results.txt and docs/runs/fitc2000_10k/results.txt
+JAX_BASELINE_MAD0 = 0.02482123
+JAX_BASELINE_ROW0 = {"titsias": -6354405.31, "sparse": -6169868.81}
+# float32 against float32 on another chip: kappa(Kmm) ~ 1 / jitter = 1e4 at
+# 2,000 inducing points under an SE kernel, so A = Lm^-1 Knm carries ~1e4 x
+# float32's 6e-8 relative, and the bound's quadratic forms cancel ~10x
+BASELINE_RTOL = 1e-3
+# the small Bayesian and full-GP runs
+SMALL_BASELINE_FLAGS = ["--ntrain", "2000", "--ntest", "100", "--nblocks", "1", "--lscale",
+                        "0.06", "--obs_std", "0.02", "--local_dist", "1.0", "--yd", "50",
+                        "--task", "x", "--engine", "host", "--num_inducing", "100",
+                        "--maxsec", "10"]
+# The float64 tail (phase 17): float32 iterations, then float64 ones
+REFINE_F32_ITERS, REFINE_ITERS, SEISMIC_REFINE_ITERS = 40, 20, 10
+# the tail's last row against the float32 loop's last: the tail computes in
+# float64 what the loop computed in float32 (1e-5 is the routes' float32
+# loss agreement, RTOL_LOSS), and it starts at the loop's pending proposal
+REFINE_RTOL = 1e-5
 # the multistart check: replicas and steps on the bench's problem.  Two float32
 # runs whose reductions reassociate part by ~1e-7 at the first steps, and this
 # ill-conditioned problem (Y iid noise) grows that ~3x a step, past 1e-5 at
@@ -362,7 +410,7 @@ def recorded_inputs(holder, evaluate, every_shape=False):
             return fn(*args)
         return f
 
-    holder.ops = mvn.Ops(*(recorded(n, f) for n, f in zip(mvn.Ops._fields, mvn.PLAIN_OPS)))
+    holder.ops = mvn.PLAIN_OPS.map_leaves(recorded)
     with torch.no_grad():
         evaluate()
     holder.ops = mvn.KERNEL_OPS
@@ -1546,7 +1594,7 @@ def run_eighty(base, cases, torch):
             f" above the resident), device busy {busy:.3f} ms ({n_launch:.0f} launches, of them "
             f"K1-K3 {ours:.3f} ms), host clock {eval_ms:.3f} ms (median of 4)")
     fused.pair_chunk = None
-    return dict(kernels=kernels, blocks=B, edges=E, m_start=m_start, m_end=m_end, m_final=m,
+    return dict(kernels=kernels, dir=d, blocks=B, edges=E, m_start=m_start, m_end=m_end, m_final=m,
                 iterations=len(steps), ms_per_iteration=ms_iter,
                 objective=[float(values[0]), float(values[-1])],
                 true_x_objective=float(true_row["mll"]), jax_artifact=list(JAX_EIGHTY_LL),
@@ -1558,9 +1606,277 @@ def run_eighty(base, cases, torch):
                 memory=memory)
 
 
+def baseline_row0(data, gplvm_type, torch):
+    """Row 0's objective of a baseline run as its driver computes it (the
+    bound at X_obs over the driver's inducing points, plus the X prior), in
+    float64 on the card at float32's jitter (the driver's jitter follows the
+    width, 1e-4 in float32 and 1e-6 in float64): float32's rounding alone."""
+    from gprf_torch.model import sgplvm
+
+    X0 = np.asarray(data.X_obs, dtype=np.float64)
+    Z0 = X0[np.random.default_rng(0).choice(len(X0), size=BASELINE_INDUCING, replace=False)]
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64, device="cuda")
+
+    jitter = sgplvm._rel_jitter
+    sgplvm._rel_jitter = lambda dtype: jitter(torch.float32)
+    try:
+        ll = sgplvm._objective_and_grads(t(X0), t(Z0), t(np.log(float(data.cov.dfn_params[0]))),
+                                         t(data.SY), 1.0, data.noise_var, gplvm_type, False)[0]
+    finally:
+        sgplvm._rel_jitter = jitter
+    return float(ll) + data.x_prior(X0.reshape(-1))[0]
+
+
+def run_baseline(flags, torch):
+    """One baseline run through the command line: its log and results, the
+    seconds, the launches (the fit runs on torch.linalg; the analysis's
+    trueX objective on the kernels)."""
+    from gprf_torch.analysis.results import load_final_results, load_results
+    from gprf_torch.cli import gprfopt
+    from gprf_torch.ops import mvn
+    from gprf_torch.optim.driver import load_log
+
+    d = gprfopt.exp_dir(gprfopt.build_parser().parse_args(flags))
+    torch.cuda.synchronize()
+    mvn.reset_launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        seconds = gprfopt.main(flags)
+    torch.cuda.synchronize()
+    steps, _, values = load_log(d)
+    results = load_results(d)
+    final, true_row = load_final_results(d)
+    wanted = {"log.txt", "results.txt", "finished", "step_00000_X.npy"}
+    if not wanted <= set(os.listdir(d)) or len(steps) < 3 or len(results) != len(steps):
+        raise AssertionError(f"baseline run {flags}: {len(steps)} rows, files "
+                             f"{sorted(os.listdir(d))[:8]}...")
+    return dict(dir=d, evaluations=len(steps), ms_per_evaluation=seconds["fit_s"] / len(steps)
+                * 1e3, objective=[float(values[0]), float(values[-1])],
+                non_finite_rows=int((~np.isfinite(values)).sum()),
+                mad=[float(results[0, 4]), float(final["mad"])],
+                true_x_objective=float(true_row["mll"]), seconds=seconds,
+                launches=dict(mvn.launch_counts))
+
+
+def run_baselines(base, smi, torch):
+    """Phase 16: the GPLVM baselines through the command line."""
+    from gprf_torch.data.sampled import sample_data
+    from gprf_torch.partition.grid import grid_centers
+
+    os.environ["GPRF_EXPERIMENTS"] = base
+    data = sample_data(n=10500, ntrain=10000, lscale=0.06, obs_std=0.02, yd=DY, seed=0,
+                       centers=grid_centers(1), noise_var=NOISE_VAR)  # the cli phase's cache
+    out = {}
+    for gplvm_type, jax_row0 in JAX_BASELINE_ROW0.items():
+        flags = BASELINE_FLAGS + ["--gplvm_type", gplvm_type, "--num_inducing",
+                                  str(BASELINE_INDUCING), "--maxsec", str(BASELINE_SECONDS)]
+        r = run_baseline(flags, torch)
+        row0_64 = baseline_row0(data, gplvm_type, torch)
+        rel = abs(r["objective"][0] - jax_row0) / abs(jax_row0)
+        r.update(jax_row0=jax_row0, rel_to_jax=rel, row0_float64=row0_64,
+                 rel_float32_to_float64=abs(r["objective"][0] - row0_64) / abs(row0_64),
+                 rel_float64_to_jax=abs(row0_64 - jax_row0) / abs(jax_row0))
+        log(f"baseline {gplvm_type}-{BASELINE_INDUCING} (truegp data, host engine, "
+            f"{BASELINE_SECONDS} s): {r['evaluations']} evaluations, {r['ms_per_evaluation']:.2f} "
+            f"ms each ({smi}); objective {r['objective'][0]:.2f} -> {r['objective'][1]:.2f} "
+            f"({r['non_finite_rows']} non-finite rows); row 0 against the JAX artifact "
+            f"{jax_row0:.2f}: rel {rel:.3e} (limit {BASELINE_RTOL}); row 0 in float64 on the "
+            f"card at float32's jitter {row0_64:.2f} (float32 rel "
+            f"{r['rel_float32_to_float64']:.3e}, float64 against the artifact "
+            f"{r['rel_float64_to_jax']:.3e}); mad {r['mad'][0]:.8f} -> "
+            f"{r['mad'][1]:.8f}; trueX objective {r['true_x_objective']:.2f}; seconds "
+            f"{r['seconds']}; launches {r['launches']}")
+        if abs(r["mad"][0] - JAX_BASELINE_MAD0) > 5e-9:
+            raise AssertionError(f"baseline {gplvm_type}: row 0's mad {r['mad'][0]}, want "
+                                 f"{JAX_BASELINE_MAD0}")
+        if not rel <= BASELINE_RTOL:
+            raise AssertionError(f"baseline {gplvm_type}: row 0's objective {r['objective'][0]} "
+                                 f"against the JAX artifact's {jax_row0}: rel {rel:.3e}")
+        if not (np.isfinite(r["objective"]).all() and r["objective"][1] > r["objective"][0]
+                and r["mad"][1] < r["mad"][0] and np.isfinite(r["true_x_objective"])):
+            raise AssertionError(f"baseline {gplvm_type}: objective {r['objective']}, mad "
+                                 f"{r['mad']}, trueX {r['true_x_objective']}")
+        out[gplvm_type] = r
+    for gplvm_type in ("bayesian", "basic"):
+        r = run_baseline(SMALL_BASELINE_FLAGS + ["--gplvm_type", gplvm_type], torch)
+        log(f"baseline {gplvm_type} (n = 2,000, 100 inducing points, host engine): "
+            f"{r['evaluations']} evaluations, {r['ms_per_evaluation']:.2f} ms each ({smi}); "
+            f"objective {r['objective'][0]:.2f} -> {r['objective'][1]:.2f} "
+            f"({r['non_finite_rows']} non-finite rows); mad {r['mad'][0]:.8f} -> "
+            f"{r['mad'][1]:.8f}")
+        if not (np.isfinite(r["objective"]).all() and r["objective"][1] > r["objective"][0]):
+            raise AssertionError(f"baseline {gplvm_type}: objective {r['objective']}")
+        out[gplvm_type] = r
+    for r in out.values():
+        del r["dir"]
+    return out
+
+
+@contextlib.contextmanager
+def counting_refine(module, torch):
+    """Patch ``module.refine_f64`` to record its seconds and the kernel
+    launches made inside it."""
+    from gprf_torch.ops import mvn
+
+    real = module.refine_f64
+    tail = {}
+
+    def counted(*args, **kw):
+        torch.cuda.synchronize()
+        before = dict(mvn.launch_counts)
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        tail.update(seconds=time.perf_counter() - t0,
+                    launches={k: mvn.launch_counts[k] - before[k] for k in before})
+        return out
+
+    module.refine_f64 = counted
+    try:
+        yield tail
+    finally:
+        module.refine_f64 = real
+
+
+def check_refined_log(what, d, iters, tail, smi):
+    """The log of a run with a float64 tail: the tail's rows go on from the
+    loop's, end no lower than its last, and the tail launched no kernel."""
+    from gprf_torch.optim.driver import load_log
+
+    with open(os.path.join(d, "log.txt")) as f:
+        lines = f.read().splitlines()
+    ends = [i for i, ln in enumerate(lines) if ln.startswith("optimization finished")]
+    if len(ends) != 1 or not lines[-1].startswith("f64 refinement finished after"):
+        raise AssertionError(f"{what}: log.txt ends {lines[-3:]}")
+    steps, _, values = load_log(d)
+    n32 = sum(1 for ln in lines[:ends[0]] if ln[:1].isdigit())
+    ms = tail["seconds"] / iters * 1e3
+    log(f"{what}: {n32} float32 iterations, objective {values[0]:.2f} -> {values[n32 - 1]:.2f}; "
+        f"{len(steps) - n32} float64 iterations, {values[n32]:.2f} -> {values[-1]:.2f} (best "
+        f"{values[n32:].max():.2f}); the tail {tail['seconds']:.2f} s, {ms:.2f} ms a float64 "
+        f"iteration ({smi}); launches inside the tail {tail['launches']}")
+    if list(steps) != list(range(n32 + iters)) or not np.isfinite(values).all():
+        raise AssertionError(f"{what}: steps {list(steps)}, values {values}")
+    if values[-1] < values[n32 - 1] - REFINE_RTOL * abs(values[n32 - 1]):
+        raise AssertionError(f"{what}: the float64 tail ends at {values[-1]}, below the float32 "
+                             f"loop's {values[n32 - 1]}")
+    if any(tail["launches"].values()):
+        raise AssertionError(f"{what}: the float64 tail launched kernels {tail['launches']}")
+    return dict(float32_iterations=n32, float64_iterations=len(steps) - n32,
+                objective=[float(values[0]), float(values[n32 - 1]), float(values[-1])],
+                tail_seconds=tail["seconds"], ms_per_float64_iteration=ms,
+                tail_launches=tail["launches"])
+
+
+def run_refine(base, smi, torch):
+    """Phase 17, the command line: the flagship with a float64 tail, task x
+    and xcov, on the cli phase's cached data."""
+    from gprf_torch.cli import gprfopt
+
+    rbase = os.path.join(base, "refine")
+    shutil.copytree(os.path.join(base, "synthetic_datasets"),
+                    os.path.join(rbase, "synthetic_datasets"))
+    os.environ["GPRF_EXPERIMENTS"] = rbase
+    out = {}
+    for task in ("x", "xcov"):
+        argv = CLI_FLAGS[:-1] + [task, "--engine", "device", "--max_iters",
+                                 str(REFINE_F32_ITERS), "--refine_iters", str(REFINE_ITERS)]
+        d = gprfopt.exp_dir(gprfopt.build_parser().parse_args(argv))
+        with counting_refine(gprfopt, torch) as tail, contextlib.redirect_stdout(sys.stderr):
+            gprfopt.main(argv)
+        out[task] = check_refined_log(f"refine, cli flagship task {task}", d, REFINE_ITERS, tail,
+                                      smi)
+        if task == "xcov":
+            with open(os.path.join(d, "covs.txt")) as f:
+                cov_steps = [int(r.split()[0]) for r in f.read().replace("\n ", " ").splitlines()]
+            last = REFINE_F32_ITERS + REFINE_ITERS - 1
+            if cov_steps[-1] != last or cov_steps != sorted(cov_steps):
+                raise AssertionError(f"refine, xcov: covs.txt rows at {cov_steps}")
+            out[task]["covs_rows"] = len(cov_steps)
+    return out
+
+
+def run_refine_seismic(base, data, smi, torch):
+    """Phase 17, the seismic command with a float64 tail, on phase 13's data."""
+    from gprf_torch.cli import run_seismic
+
+    os.environ["SEISMIC_EXPERIMENTS"] = os.path.join(base, "refine")
+    argv = SEISMIC_FLAGS + ["--data_dir", data, "--engine", "device", "--max_iters", "20",
+                            "--refine_iters", str(SEISMIC_REFINE_ITERS)]
+    d = run_seismic.seismic_exp_dir(run_seismic.build_parser().parse_args(argv))
+    with counting_refine(run_seismic, torch) as tail, contextlib.redirect_stdout(sys.stderr):
+        run_seismic.main(argv)
+    return check_refined_log("refine, seismic xcov", d, SEISMIC_REFINE_ITERS, tail, smi)
+
+
+def run_refine_wide(base, eighty_dir, smi, torch):
+    """Phase 17 at m = 888, from the 80k phase's final X: the default cap
+    skips the tail, GPRF_REFINE_MAX_M=1024 runs it 2 steps a dispatch."""
+    import io
+
+    from gprf_torch.data.sampled import sample_data
+    from gprf_torch.model.fused import FusedSyntheticGPRF
+    from gprf_torch.ops import mvn
+    from gprf_torch.optim.driver import load_log
+    from gprf_torch.optim.lbfgs import refine_f64
+    from gprf_torch.partition.grid import grid_centers
+
+    os.environ["GPRF_EXPERIMENTS"] = base
+    os.environ["GPRF_SAMPLER"] = EIGHTY_SAMPLER
+    data = sample_data(centers=grid_centers(NBLOCKS), **EIGHTY_DATA)  # from the 80k phase's cache
+    x = np.load(os.path.join(eighty_dir, "step_%05d_X.npy" % (EIGHTY_ITERS - 1))).reshape(-1)
+
+    def make_fused(dtype):
+        return FusedSyntheticGPRF(data.X_obs, data.SY, data.neighbors, data.X_obs, data.obs_std,
+                                  data.cov, data.noise_var, task="x",
+                                  centers=np.asarray(data.centers), device="cuda", dtype=dtype,
+                                  acc_dtype=torch.float64, ops=mvn.LINALG_OPS)
+
+    m = make_fused(torch.float64).m
+    d = os.path.join(base, "refine_wide")
+    os.makedirs(d)
+    saved = os.environ.pop("GPRF_REFINE_MAX_M", None)
+    try:
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            skipped = refine_f64(d, make_fused, x, EIGHTY_ITERS, iters=4)
+        if not ("exceeds the cap 512; skipping the f64 phase" in said.getvalue()
+                and np.array_equal(skipped, x) and os.listdir(d) == []):
+            raise AssertionError(f"80k refine under the default cap: {said.getvalue()!r}")
+        os.environ["GPRF_REFINE_MAX_M"] = "1024"
+        torch.cuda.synchronize()
+        mvn.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            refine_f64(d, make_fused, x, EIGHTY_ITERS, iters=4)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        os.environ.pop("GPRF_REFINE_MAX_M", None)
+        if saved is not None:
+            os.environ["GPRF_REFINE_MAX_M"] = saved
+    launches = dict(mvn.launch_counts)
+    steps, _, values = load_log(d)
+    ckpts = sorted(f for f in os.listdir(d) if f.endswith("_X.npy"))
+    want = ["step_%05d_X.npy" % (EIGHTY_ITERS + k) for k in (1, 3)]
+    log(f"refine at 80k (m = {m}): skipped under the default cap with "
+        f"its message; with GPRF_REFINE_MAX_M=1024 steps {list(steps)}, checkpoints {ckpts}, "
+        f"objective {values[0]:.2f} -> {values[-1]:.2f}; {seconds:.2f} s, "
+        f"{seconds / 4 * 1e3:.1f} ms a float64 iteration with its first evaluation ({smi}); "
+        f"launches {launches}")
+    if list(steps) != list(range(EIGHTY_ITERS, EIGHTY_ITERS + 4)) or ckpts != want:
+        raise AssertionError(f"80k refine: steps {list(steps)}, checkpoints {ckpts}")
+    if any(launches.values()) or not np.isfinite(values).all():
+        raise AssertionError(f"80k refine: launches {launches}, values {values}")
+    return dict(m=m, steps=len(steps), seconds=seconds, ms_per_float64_iteration=seconds / 4 * 1e3,
+                objective=[float(values[0]), float(values[-1])])
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
                          "False); this check runs only on a GPU")
@@ -1606,11 +1922,15 @@ def main():
             rpc = run_rpc(base, cases, torch)
             host = run_host(host_base, data, cases, torch)
             resume = run_resume(host_base, data, torch)
+            baselines = run_baselines(base, smi, torch)
+            refine = run_refine(base, smi, torch)
         with tempfile.TemporaryDirectory() as base:
             seismic, seismic_data = run_seismic_device(base, cases, torch)
             seismic_host = run_seismic_host(base, seismic_data, torch)
+            refine["seismic"] = run_refine_seismic(base, seismic_data, smi, torch)
         with tempfile.TemporaryDirectory() as base:
             eighty = run_eighty(base, cases, torch)
+            refine["eighty"] = run_refine_wide(base, eighty.pop("dir"), smi, torch)
     finally:  # the phases pointed them at directories that are gone now
         for k, v in experiments.items():
             if v is None:
@@ -1635,13 +1955,14 @@ def main():
     bench_record = bench.run(dev, log=log)
     log(f"bench: {json.dumps(bench_record)}")
 
+    log(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({
         "kernels": list(report.values()),
         "slice": {"n": N, "blocks": NBLOCKS, "m": M0, "edges": bench_edges, "dy": DY, "routes": routes,
                   "cli": cli, "predict": predict, "rpc": rpc, "host": host, "resume": resume,
                   "bench": bench_record,
                   "multistart": multistart, "seismic": seismic, "seismic_host": seismic_host,
-                  "eighty": eighty},
+                  "eighty": eighty, "baselines": baselines, "refine": refine},
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

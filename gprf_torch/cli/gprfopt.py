@@ -13,8 +13,11 @@ host, the device engine on the card), ``--init_x``, ``--init_true``,
 ``--init_seed``, ``--analyze``, ``--analyze_full`` (the predictive columns
 of results.txt; under an RPC partition it raises IndexError, as the
 reference's does), ``--multistart`` (device engine; the host engine ignores
-it, as the reference's does).  What is not ported yet is refused with a
-message (:func:`refuse_unported`).
+it, as the reference's does), ``--refine_iters`` (device engine: the
+float64 tail of :func:`~gprf_torch.optim.lbfgs.refine_f64`, on the run's
+device) and the GPLVM baselines ``--gplvm_type sparse|titsias|bayesian|basic``
+with ``--num_inducing`` (host engine, :mod:`gprf_torch.model.sgplvm`).
+:func:`check_options` refuses what no engine serves.
 """
 
 from __future__ import annotations
@@ -31,24 +34,25 @@ from gprf_torch.analysis.results import analyze_run
 from gprf_torch.data.sampled import exp_base_dir, sample_data
 from gprf_torch.data.synthetic import sampler_suffix
 from gprf_torch.model.fused import FusedSyntheticGPRF
-from gprf_torch.optim.driver import do_optimization
+from gprf_torch.model.sgplvm import GPLVM_TYPES, do_sgplvm
+from gprf_torch.ops.mvn import KERNEL_OPS, LINALG_OPS
+from gprf_torch.optim.driver import do_optimization, load_log
 from gprf_torch.optim.lbfgs import (do_optimization_fused, do_optimization_fused_theta,
                                     do_optimization_multistart,
-                                    do_optimization_multistart_theta)
+                                    do_optimization_multistart_theta, refine_f64)
 from gprf_torch.partition.grid import grid_centers
 from gprf_torch.utils.device import resolve_device
 from gprf_torch.utils.io import mkdir_p
 
 
-def refuse_unported(gplvm_type="gprf", refine_iters=0, schur_precision=""):
-    """Raise for an option of the reference that the port does not serve."""
-    pending = [
-        (gplvm_type != "gprf", "--gplvm_type other than gprf: the GPLVM baselines (model/sgplvm.py)"),
-        (refine_iters > 0, "--refine_iters > 0: the float64 refinement phase (refine_f64)"),
-    ]
-    for hit, what in pending:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP, still to port)")
+def check_options(gplvm_type="gprf", engine="host", schur_precision=""):
+    """Raise ValueError, before anything runs, for options that no engine
+    serves: an unknown ``--gplvm_type``, a GPLVM baseline on the device
+    engine (as the reference's ``do_run`` does), ``--schur_precision high``."""
+    if gplvm_type != "gprf" and gplvm_type not in GPLVM_TYPES:
+        raise ValueError(f"--gplvm_type {gplvm_type}: one of gprf, {', '.join(GPLVM_TYPES)}")
+    if engine == "device" and gplvm_type != "gprf":
+        raise ValueError("--engine=device serves GPRF runs; GPLVM baselines use the host engine")
     if schur_precision not in ("", "highest"):
         raise ValueError(f"--schur_precision {schur_precision}: gprf_torch computes every float32 "
                          "product at full precision (TF32 off) and has no faster, coarser mode")
@@ -64,9 +68,11 @@ def do_run(d, lscale, n, ntrain, nblocks, yd, seed=0, method="l-bfgs-b", obs_std
     """One experiment in run directory ``d``: sample (or load) the data,
     optimize with the chosen engine, analyze.  ``device`` and ``dtype`` are
     where and at which width the objective runs; ``mvn_inv`` and
-    ``unary_doubling`` pick a route of the device engine's objective.
-    Returns the seconds spent sampling, fitting and analyzing."""
-    refuse_unported(gplvm_type, refine_iters)
+    ``unary_doubling`` pick a route of the device engine's objective; the
+    float64 tail of ``refine_iters`` runs on ``device`` over
+    :data:`~gprf_torch.ops.mvn.LINALG_OPS`.  Returns the seconds spent
+    sampling, fitting and analyzing."""
+    check_options(gplvm_type, engine)
     device = resolve_device(device)
     if rpc_blocksize == -1:
         centers = grid_centers(nblocks)
@@ -129,11 +135,15 @@ def do_run(d, lscale, n, ntrain, nblocks, yd, seed=0, method="l-bfgs-b", obs_std
             # RPC split tree, replayed on the device
             part = (dict(centers=np.asarray(centers)) if centers is not None
                     else dict(rpc_tree=data.rpc_splits))
-            fused = FusedSyntheticGPRF(
-                data.SX if task == "cov" else X0, data.SY, gprf.neighbors, data.X_obs,
-                data.obs_std, gprf.cov, gprf.noise_var, task=task, C0=C0, device=device,
-                dtype=dtype, acc_dtype=torch.float64, mvn_inv=mvn_inv,
-                unary_doubling=unary_doubling, **part)
+
+            def make_fused(dt, ops=KERNEL_OPS, m=None):
+                return FusedSyntheticGPRF(
+                    data.SX if task == "cov" else X0, data.SY, gprf.neighbors, data.X_obs,
+                    data.obs_std, data.cov, data.noise_var, task=task, C0=C0, m=m,
+                    device=device, dtype=dt, acc_dtype=torch.float64, ops=ops,
+                    mvn_inv=mvn_inv, unary_doubling=unary_doubling, **part)
+
+            fused = make_fused(dtype)
             if max_iters is None:
                 max_iters = 400 if task == "x" else 600
             loop = dict(maxsec=maxsec, max_iters=max_iters, ftol=ftol,
@@ -145,7 +155,7 @@ def do_run(d, lscale, n, ntrain, nblocks, yd, seed=0, method="l-bfgs-b", obs_std
                     # perturbations of it at the observation prior's scale
                     X0s = np.stack([X0] + [X0 + ms_rng.standard_normal(X0.shape) * data.obs_std
                                            for _ in range(multistart - 1)])
-                    _, _, final_v = do_optimization_multistart(d, fused, X0s, **loop)
+                    x_final, _, final_v = do_optimization_multistart(d, fused, X0s, **loop)
                 else:
                     theta0 = fused.theta0()
                     thetas = [theta0]
@@ -156,16 +166,26 @@ def do_run(d, lscale, n, ntrain, nblocks, yd, seed=0, method="l-bfgs-b", obs_std
                         t[len(t) - C0.size:] += (ms_rng.standard_normal(C0.size) * 0.3
                                                  * FusedSyntheticGPRF.COV_SCALE)
                         thetas.append(t)
-                    _, _, final_v = do_optimization_multistart_theta(d, fused, np.stack(thetas),
-                                                                     **loop)
+                    x_final, _, final_v = do_optimization_multistart_theta(
+                        d, fused, np.stack(thetas), **loop)
                 print("multistart: best replica %d of %d (final objectives %s)"
                       % (int(np.argmin(final_v)), multistart, final_v))
             elif task == "x":
-                do_optimization_fused(d, fused, X0, **loop)
+                x_final = do_optimization_fused(d, fused, X0, **loop)
             else:
-                do_optimization_fused_theta(d, fused, fused.theta0(), **loop)
+                x_final = do_optimization_fused_theta(d, fused, fused.theta0(), **loop)
             print("device engine: B = %d blocks, E = %d edges, final block capacity m = %d"
                   % (fused.n_blocks, len(gprf.neighbors), fused.m))
+            if refine_iters > 0:
+                # the float64 tail over the same partition, edges, task and
+                # start, at the capacity the float32 loop ended at
+                it0 = int(load_log(d)[0][-1]) + 1
+                refine_f64(d, lambda dt: make_fused(dt, LINALG_OPS, fused.m), x_final, it0,
+                           iters=refine_iters)
+        elif gplvm_type != "gprf":
+            do_sgplvm(d, X0, C0, data, method=method, maxsec=maxsec, gplvm_type=gplvm_type,
+                      num_inducing=num_inducing, max_iters=max_iters, device=device,
+                      dtype=dtype)
         else:
             do_optimization(d, gprf, X0, C0, data, method=method, maxsec=maxsec,
                             parallel=parallel)
@@ -240,7 +260,7 @@ def build_parser():
     add("--seed", dest="seed", default=0, type=int, help="seed for generating synthetic data")
     add("--yd", dest="yd", default=50, type=int, help="number of output dimensions to sample")
     add("--maxsec", dest="maxsec", default=3600, type=int, help="maximum seconds to run the optimization")
-    add("--max_iters", dest="max_iters", default=None, type=int, help="device engine: max scan-L-BFGS iterations (default 400 for task=x, 600 for cov/xcov)")
+    add("--max_iters", dest="max_iters", default=None, type=int, help="device engine: max scan-L-BFGS iterations (default 400 for task=x, 600 for cov/xcov). With --gplvm_type baselines it instead switches scipy from the reference protocol (ftol 1e-6, maxiter 200) to a converged protocol: this total eval budget at ftol 1e-10 with L-BFGS-B restarts on line-search aborts")
     add("--task", dest="task", default="x", type=str, help="'x', 'cov', or 'xcov'")
     add("--analyze", dest="analyze", default=False, action="store_true", help="only analyze existing saved results")
     add("--analyze_full", dest="analyze_full", default=False, action="store_true", help="fuller analysis incl. predictive accuracy")
@@ -249,10 +269,10 @@ def build_parser():
     add("--init_true", dest="init_true", default=False, action="store_true", help="initialize at true X locations")
     add("--init_x", dest="init_x", default="", type=str, help="initialize X locations from a .npy checkpoint (continuation runs; task=x)")
     add("--noise_var", dest="noise_var", default=0.01, type=float, help="variance of iid noise in synthetic Y")
-    add("--gplvm_type", dest="gplvm_type", default="gprf", type=str, help="'gprf'; the inducing-point GPLVM baselines are not ported yet")
+    add("--gplvm_type", dest="gplvm_type", default="gprf", type=str, help="'gprf', or 'sparse' (FITC) / 'titsias' / 'bayesian' / 'basic' for the inducing-point GPLVM baseline (host engine)")
     add("--num_inducing", dest="num_inducing", default=0, type=int, help="number of inducing points for sparse baselines")
     add("--engine", dest="engine", default="host", choices=["host", "device"], help="host: scipy L-BFGS-B, one objective dispatch per evaluation (reference semantics); device: scan-L-BFGS loop on the device")
-    add("--refine_iters", dest="refine_iters", default=0, type=int, help="device engine: float64 refinement iterations after the float32 loop (not ported yet)")
+    add("--refine_iters", dest="refine_iters", default=0, type=int, help="device engine: follow the float32 loop with this many float64 iterations, on the run's device")
     add("--ftol", dest="ftol", default=1e-6, type=float, help="device engine: relative per-dispatch improvement threshold for stall detection")
     add("--stall_patience", dest="stall_patience", default=4, type=int, help="device engine: consecutive stalled dispatches before stopping")
     add("--multistart", dest="multistart", default=1, type=int, help="device engine: optimize this many replicas at once and keep the best final objective")
@@ -263,7 +283,7 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_unported(args.gplvm_type, args.refine_iters, args.schur_precision)
+    check_options(args.gplvm_type, args.engine, args.schur_precision)
     device = resolve_device(args.device)
     mkdir_p(exp_base_dir())
     d = exp_dir(args)

@@ -11,8 +11,10 @@ scipy over ``GPRF.llgrad``; ``--engine device``: scan-L-BFGS over
 ``--multistart`` replicas), and the per-step location error against the
 catalog ("true") locations in ``results.txt``.  The flags are the
 reference's, plus ``--device`` (default ``cuda``; without a CUDA device the
-default raises, and only ``--device cpu`` runs on the CPU).  ``--sparse``
-and ``--refine_iters`` are refused.
+default raises, and only ``--device cpu`` runs on the CPU).
+``--refine_iters`` follows the device engine with the float64 tail of
+:func:`~gprf_torch.optim.lbfgs.refine_f64` on the run's device.
+``--sparse`` is refused.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ from gprf_torch.data.seismic import COL_DEPTH, COL_LAT, COL_LON, load_data, mad,
 from gprf_torch.model.fused_seismic import FusedSeismicGPRF
 from gprf_torch.model.gprf import GPRF
 from gprf_torch.optim.driver import do_optimization_seismic, load_log
-from gprf_torch.optim.lbfgs import do_optimization_fused_theta, do_optimization_multistart_theta
+from gprf_torch.ops.mvn import KERNEL_OPS, LINALG_OPS
+from gprf_torch.optim.lbfgs import (do_optimization_fused_theta,
+                                    do_optimization_multistart_theta, refine_f64)
 from gprf_torch.optim.priors import seismic_cov_prior
 from gprf_torch.partition.pdtree import PDTree, pdtree_cluster, wrap_lon
 from gprf_torch.utils.device import resolve_device
@@ -110,7 +114,7 @@ def build_parser():
     add("--data_dir", dest="data_dir", default=".", type=str, help="directory holding sorted_isc.npy / cached Y")
     add("--engine", dest="engine", default="host", choices=["host", "device"], help="host: scipy L-BFGS-B, one objective dispatch per evaluation (reference semantics); device: scan-L-BFGS loop on the device")
     add("--multistart", dest="multistart", default=1, type=int, help="device engine: optimize this many replicas at once and keep the best final objective")
-    add("--refine_iters", dest="refine_iters", default=0, type=int, help="device engine: float64 refinement iterations after the float32 loop (not ported yet)")
+    add("--refine_iters", dest="refine_iters", default=0, type=int, help="device engine: float64 refinement iterations after the float32 loop, on the run's device")
     add("--max_iters", dest="max_iters", default=600, type=int, help="device engine: max scan-L-BFGS iterations")
     add("--ftol", dest="ftol", default=1e-6, type=float, help="device engine: relative per-dispatch improvement threshold for stall detection")
     add("--stall_patience", dest="stall_patience", default=4, type=int, help="device engine: consecutive stalled dispatches before stopping")
@@ -120,12 +124,9 @@ def build_parser():
 
 def refuse_unported(args):
     """Raise for an option of the reference that the port does not serve."""
-    for hit, what in ((args.sparse, "--sparse: the sparse per-block llgrad"),
-                      (args.refine_iters > 0, "--refine_iters > 0: the float64 refinement "
-                                              "phase (refine_f64)")):
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP, still to port: "
-                                      "item 10, the rest)")
+    if args.sparse:
+        raise NotImplementedError("--sparse: the sparse per-block llgrad is not ported yet "
+                                  "(ROADMAP, still to port: the kernelized and sparse llgrads)")
 
 
 def multistart_thetas(theta0, task, nx, count, seed):
@@ -210,15 +211,17 @@ def build_problem(args, *, device: torch.device | str, dtype: torch.dtype = torc
                 gprf=gprf, sample_s=sample_s)
 
 
-def build_engine(args, p, *, device: torch.device | str, dtype: torch.dtype = torch.float32):
+def build_engine(args, p, *, device: torch.device | str, dtype: torch.dtype = torch.float32,
+                 ops=KERNEL_OPS, m: int | None = None):
     """The device engine over the problem ``p`` of :func:`build_problem`: a
-    PD-tree over the observed locations, float64 scalar tails."""
+    PD-tree over the observed locations, float64 scalar tails, the leaves
+    ``ops`` and the capacity ``m`` (default: the tree's widest leaf)."""
     X2 = p["means"][:, :2].copy()
     X2[:, 0] = wrap_lon(X2[:, 0])
     tree = PDTree(X2, minsize=args.rpc_blocksize)
     return FusedSeismicGPRF(p["means"], p["SY"], tree, p["gprf"].neighbors, p["means"],
                             p["prior_std"], p["cov"], p["cov_true"][0, 0], task=args.task,
-                            device=device, dtype=dtype, acc_dtype=torch.float64)
+                            m=m, device=device, dtype=dtype, acc_dtype=torch.float64, ops=ops)
 
 
 def do_run(args, *, device: torch.device | str, dtype: torch.dtype = torch.float32):
@@ -246,14 +249,20 @@ def do_run(args, *, device: torch.device | str, dtype: torch.dtype = torch.float
             if args.multistart > 1:
                 theta0s = multistart_thetas(theta0, args.task, means.size, args.multistart,
                                             args.seed)
-                _, _, final_v = do_optimization_multistart_theta(d, fused, theta0s, **loop)
+                theta_final, _, final_v = do_optimization_multistart_theta(d, fused, theta0s,
+                                                                           **loop)
                 print("multistart: best replica %d of %d (final objectives %s)"
                       % (int(np.argmin(final_v)), args.multistart, final_v))
             else:
-                do_optimization_fused_theta(d, fused, theta0, **loop)
+                theta_final = do_optimization_fused_theta(d, fused, theta0, **loop)
             info["m_end"] = fused.m
             print("device engine: B = %d blocks, E = %d edges, block capacity m = %d -> %d"
                   % (info["blocks"], info["edges"], info["m"], fused.m))
+            if args.refine_iters > 0:
+                it0 = int(load_log(d)[0][-1]) + 1
+                refine_f64(d, lambda dt: build_engine(args, p, device=device, dtype=dt,
+                                                      ops=LINALG_OPS, m=fused.m),
+                           theta_final, it0, iters=args.refine_iters)
         else:
             do_optimization_seismic(d, gprf, X0, C0, seismic_cov_prior, p["x_prior"],
                                     maxsec=args.maxsec, parallel=args.parallel,

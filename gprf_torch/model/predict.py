@@ -24,6 +24,7 @@ from __future__ import annotations
 from collections import defaultdict
 
 import numpy as np
+import scipy.linalg
 import torch
 
 from gprf_torch.kernels.covfn import cross_kernel_matrix, kernel_matrix
@@ -233,10 +234,9 @@ def train_predictor(gprf, test_cov: GPCov | None = None, Y=None, combine: str = 
             nb = int(sizes[i])
             Xi = X_snap[block_idxs[i]]
             # identity padding is block-diagonal: the leading nb x nb of the
-            # padded factor is chol(K_block); rebuild the explicit inverse
-            # the reference cached
+            # padded factor is chol(K_block), which solves with K_block where
+            # the reference multiplies by the explicit inverse it cached
             Lb = Ls_h[i, :nb, :nb]
-            Kinv = np.linalg.inv(Lb.T) @ np.linalg.inv(Lb)
             alpha = Alphas_h[i, :nb]
             Kstar = cross_kernel_matrix_np(gprf.cov, Xstar, Xi)
             Kss = cross_kernel_matrix_np(gprf.cov, Xstar, Xstar)
@@ -245,7 +245,7 @@ def train_predictor(gprf, test_cov: GPCov | None = None, Y=None, combine: str = 
                 # noise variance when test noise is asked for
                 Kss = Kss + np.eye(Kss.shape[0]) * gprf.noise_var
             mean = Kstar @ alpha
-            cov_post = Kss - Kstar @ (Kinv @ Kstar.T)
+            cov_post = Kss - Kstar @ scipy.linalg.cho_solve((Lb, True), Kstar.T)
             prec = np.linalg.inv(cov_post)
             pp = np.linalg.inv(Kss)
             prior_prec += prec - pp

@@ -22,6 +22,9 @@ inputs, so end-to-end gradients equal autodiff's.
 :data:`KERNEL_OPS` (the Functions) and :data:`PLAIN_OPS` (the twins under
 PyTorch's own autograd) let a caller run the same composition on either,
 which is how the kernels are held against their twins on the card.
+:data:`LINALG_OPS` is the float64 route of the card, which the kernels
+refuse: ``torch.linalg`` (cuSOLVER on the card, LAPACK on the CPU), the
+same arithmetic as the twins, but checked and never split.
 """
 
 from __future__ import annotations
@@ -137,10 +140,10 @@ def cholesky_plain(K):
     return cholesky_nan(K)
 
 
-def _mvn_plain(Kp, Ym, n_active):
+def _mvn_plain(Kp, Ym, n_active, factor=cholesky_nan):
     """(ll, L, Z = L^-1 Ym) by the library factorization."""
     dy = Ym.shape[-1]
-    L = cholesky_nan(Kp)
+    L = factor(Kp)
     z = torch.linalg.solve_triangular(L, Ym, upper=False)
     quad = torch.sum(z * z, dim=(-2, -1))
     logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
@@ -460,14 +463,24 @@ class Cholesky(torch.autograd.Function):
 
 
 class Ops(NamedTuple):
-    """The leaf primitives a composition runs on.  The last two default to
-    the kernels, so a caller may name only the first three."""
+    """The leaf primitives a composition runs on.  ``mvn_ll_inv`` and
+    ``cholesky`` default to the kernels, so a caller may name only the first
+    three.  ``leaf_caps``: whether the leaves have the kernels'
+    shared-memory caps, so that :mod:`gprf_torch.ops.split_mvn` splits a
+    wider block; leaves without caps take any width whole."""
 
     chol_inv: Callable  # K -> (L, W)
     mvn_ll: Callable  # (Kp, Ym, n_active) -> ll
     tri_inv: Callable  # L -> W
     mvn_ll_inv: Callable = MvnLLInv.apply  # (Kp, Ym, n_active) -> ll
     cholesky: Callable = Cholesky.apply  # K -> L
+    leaf_caps: bool = True
+
+    def map_leaves(self, fn):
+        """These Ops with each leaf primitive ``f`` of field ``name``
+        replaced by ``fn(name, f)`` (to count or record its calls)."""
+        return self._replace(**{n: fn(n, getattr(self, n)) for n in self._fields
+                                if n != "leaf_caps"})
 
 
 KERNEL_OPS = Ops(
@@ -483,4 +496,45 @@ PLAIN_OPS = Ops(
     tri_inv=tri_inv_plain,
     mvn_ll_inv=lambda Kp, Ym, n_active: mvn_ll_inv_plain(Kp, Ym, n_active)[0],
     cholesky=cholesky_plain,
+)
+
+
+# ---- float64 on the library ----------------------------------------------------
+
+
+def cholesky_checked(K):
+    """Lower Cholesky factor by ``torch.linalg.cholesky_ex``.  A finite
+    block that is not positive definite raises: identity-padded rows factor
+    exactly, so a padded block never does, and a float64 Schur complement
+    of a noisy kernel matrix should not either.  A non-finite block gives a
+    NaN factor, as the twins do, so that an optimizer rejects the point.
+    One host sync a call, to read ``info``."""
+    L, info = torch.linalg.cholesky_ex(K)
+    failed = info != 0
+    if bool((failed & torch.isfinite(K).flatten(-2).all(dim=-1)).any()):
+        bad = torch.nonzero(failed.reshape(-1)).reshape(-1)[:8].tolist()
+        raise torch.linalg.LinAlgError(
+            f"cholesky_checked: {int(failed.sum())} finite blocks of {tuple(K.shape)} are not "
+            f"positive definite (flat batch indices {bad}...)")
+    m = K.shape[-1]
+    lower = torch.ones((m, m), dtype=torch.bool, device=K.device).tril()
+    return L.masked_fill(failed[..., None, None] & lower, float("nan"))
+
+
+def _linalg_chol_inv(K):
+    L = cholesky_checked(K)
+    return L, tri_inv_plain(L)
+
+
+# The float64 route of the card (the kernels refuse float64): the library's
+# factorization under PyTorch's autograd, in whole blocks at any width.  The
+# reference's float64 objective goes through XLA's Cholesky and triangular
+# solve, not through its float32 Pallas kernels; the same holds here.
+LINALG_OPS = Ops(
+    chol_inv=_linalg_chol_inv,
+    mvn_ll=lambda Kp, Ym, n_active: _mvn_plain(Kp, Ym, n_active, cholesky_checked)[0],
+    tri_inv=tri_inv_plain,
+    mvn_ll_inv=lambda Kp, Ym, n_active: _mvn_plain(Kp, Ym, n_active, cholesky_checked)[0],
+    cholesky=cholesky_checked,
+    leaf_caps=False,
 )

@@ -13,6 +13,9 @@ shared-memory caps on the H100 (:data:`LEAF_CHOL` = 240 for K1,
 :func:`gprf_torch.ops.mvn.mvn_max_m` = 208 at dy = 50 for K2 and K4), so the
 flagship width m = 136 goes straight to the kernels and only wider blocks
 split.  The ``leaf`` arguments force a split, for tests and comparisons.
+Leaves without caps (``ops.leaf_caps`` false: :data:`~gprf_torch.ops.mvn.LINALG_OPS`,
+the float64 route on ``torch.linalg``) take a block of any width whole
+unless a ``leaf`` is given.
 
 Identity-padded masking passes through the split exactly: a padded row in
 the A part stays an identity row of L_A, and a padded row in the C part
@@ -44,6 +47,14 @@ def split_point(m: int) -> int:
     return (((m + 1) // 2) + 7) // 8 * 8
 
 
+def _leaf(leaf, cap, ops, m):
+    """The widest leaf: the one given, else the kernel's cap, else (leaves
+    without caps) m itself."""
+    if leaf is not None:
+        return leaf
+    return cap if ops.leaf_caps else m
+
+
 def _blocks(M, h):
     return M[:, :h, :h], M[:, h:, :h], M[:, h:, h:]
 
@@ -57,7 +68,7 @@ def _assemble_lower(A, B21, C):
 def chol_inv_split(K, leaf: int | None = None, ops: Ops = KERNEL_OPS):
     """(L, W = L^-1) for SPD [B, m, m] with chol_inv leaves."""
     m = K.shape[-1]
-    leaf = LEAF_CHOL if leaf is None else leaf
+    leaf = _leaf(leaf, LEAF_CHOL, ops, m)
     if m <= leaf:
         return ops.chol_inv(K)
     h = split_point(m)
@@ -73,7 +84,7 @@ def tri_inv_split(L, leaf: int | None = None, ops: Ops = KERNEL_OPS):
     """W = L^-1 for lower-triangular [B, m, m] with tri_inv leaves:
     inv([[A, 0], [B, C]]) = [[Wa, 0], [-Wc B Wa, Wc]]."""
     m = L.shape[-1]
-    leaf = LEAF_TRI if leaf is None else leaf
+    leaf = _leaf(leaf, LEAF_TRI, ops, m)
     if m <= leaf:
         return ops.tri_inv(L)
     h = split_point(m)
@@ -89,7 +100,7 @@ def cholesky_split(K, leaf: int | None = None, ops: Ops = KERNEL_OPS):
     the leaf cap it is one K5 launch; wider (where ``gprf_tpu``'s pipeline
     falls back to XLA's Cholesky) every leaf stays on the kernels."""
     m = K.shape[-1]
-    leaf = LEAF_CHOLESKY if leaf is None else leaf
+    leaf = _leaf(leaf, LEAF_CHOLESKY, ops, m)
     if m <= leaf:
         return ops.cholesky(K)
     h = split_point(m)
@@ -112,7 +123,7 @@ def mvn_ll_split(Kp, Ym, n_active, leaf_mvn: int | None = None,
     other leaves stay on ``ops.mvn_ll``."""
     m = Kp.shape[-1]
     dy = Ym.shape[-1]
-    leaf_mvn = mvn_max_m(dy) if leaf_mvn is None else leaf_mvn
+    leaf_mvn = _leaf(leaf_mvn, mvn_max_m(dy), ops, m)
     if m <= leaf_mvn:
         if mvn_inv and mvn_inv_supported(m, dy):
             return ops.mvn_ll_inv(Kp, Ym, n_active)

@@ -1,8 +1,8 @@
 """Scan-style L-BFGS with retrospective Armijo control, and the drivers
 around it that keep the experiment's file protocol (mirror of
 ``make_scan_lbfgs_runner``, ``make_multistart_runner``, the multistart
-drivers, ``do_optimization_fused`` and ``do_optimization_fused_theta`` in
-``gprf_tpu/optim/device_lbfgs.py``).
+drivers, ``do_optimization_fused``, ``do_optimization_fused_theta`` and
+``refine_f64`` in ``gprf_tpu/optim/device_lbfgs.py``).
 
 Exactly one loss+gradient evaluation per iteration and no data-dependent
 control flow: step k evaluates the point proposed by step k-1; if the
@@ -544,6 +544,86 @@ def do_optimization_multistart_theta(d, fused, theta0s, maxsec: float = 3600,
                            steps_per_dispatch, ftol, stall_patience=stall_patience)
 
 
-def refine_f64(*args, **kwargs):
-    raise NotImplementedError("the float64 refinement phase is not ported yet (ROADMAP, still "
-                              "to port: refine_f64)")
+# ---- the float64 tail ------------------------------------------------------------
+
+def refine_f64(d, make_fused, x32, it0, iters: int = 60, steps_per_dispatch: int = 10,
+               maxsec: float = 1800, *, device: torch.device | str | None = None):
+    """Float64 refinement phase: rebuild the fused loss at float64 and go on
+    optimizing from the float32 solution ``x32`` (the flat X, or the packed
+    theta of a cov / xcov / seismic task).  The float32 objective's roundoff
+    floors late-stage convergence at large n.
+
+    ``make_fused(torch.float64)`` builds the evaluator; it should take
+    :data:`~gprf_torch.ops.mvn.LINALG_OPS`, since the kernels are float32
+    only.  The tail runs on that evaluator's device, which is ``device``
+    where one is given (else it raises): the card by default, where the
+    reference runs its tail on the host CPU because a TPU emulates float64.
+    The H100 computes float64 natively.
+
+    As the reference: log.txt rows go on from ``it0``, a step checkpoint
+    (and a covs.txt row, the file opened at the first one) per dispatch;
+    blocks wider than ``GPRF_REFINE_MAX_M`` (default 512) skip the phase
+    with a message and return ``x32``; past m = 512 a dispatch is 2 steps;
+    ``GPRF_REFINE_MAXSEC`` overrides ``maxsec``; the phase stops after two
+    dispatches in a row that improve the best objective by less than 1e-9
+    relative.  Unlike the reference, a block that outgrows the capacity
+    grows it (:class:`GrowingRunner`) instead of dropping points.
+
+    Returns the final flat vector (float64 on the host)."""
+    maxsec = float(os.environ.get("GPRF_REFINE_MAXSEC", maxsec))
+    fused = make_fused(torch.float64)
+    if device is not None and fused.device != torch.device(device):
+        raise ValueError(f"make_fused built the evaluator on {fused.device}, not on {device}")
+    max_m = int(os.environ.get("GPRF_REFINE_MAX_M", 512))
+    if fused.m > max_m:
+        print("refine_f64: block width m=%d exceeds the cap %d; "
+              "skipping the f64 phase (raise GPRF_REFINE_MAX_M to force)" % (fused.m, max_m))
+        return np.asarray(x32)
+    if fused.m > 512:
+        # a dispatch of ten wide-m steps would overrun the time budget's cadence
+        steps_per_dispatch = min(steps_per_dispatch, 2)
+    print("refine_f64: running the f64 tail on %s" % (fused.device,))
+    runner = GrowingRunner(fused, steps_per_dispatch)
+    carry = runner.init_fn(torch.as_tensor(np.asarray(x32, dtype=np.float64),
+                                           device=fused.device))
+    f_log = open(os.path.join(d, "log.txt"), "a")
+    # opened at the first cov row: a task=x run grows no empty covs.txt
+    covf = None
+    t0 = time.time()
+    it = it0
+    prev_best = np.inf
+    stall = 0
+    try:
+        while it < it0 + iters and time.time() - t0 < maxsec:
+            carry, (step_values, _, _, overflow) = runner.run_fn(carry)
+            out = torch.cat([step_values, overflow.double().reshape(1)]).cpu().numpy()
+            values = -out[:steps_per_dispatch]
+            if out[steps_per_dispatch]:
+                carry = runner.grow(carry)
+            step_idx = it + steps_per_dispatch - 1
+            X, FC = fused.unpack_host(carry["x"].cpu().numpy())
+            save_step(d, step_idx, X=X, FC=FC)
+            if FC is not None:
+                if covf is None:
+                    covf = open(os.path.join(d, "covs.txt"), "a")
+                covf.write("%d %s\n" % (step_idx, FC))
+                covf.flush()
+            now = time.time() - t0
+            for k, v in enumerate(values):
+                f_log.write("%d %.2f %.2f\n" % (it + k, now, float(v)))
+            f_log.flush()
+            it += steps_per_dispatch
+            best = float((-values).min())
+            if prev_best - best < 1e-9 * (abs(prev_best) + 1e-12):
+                stall += 1
+                if stall >= 2:
+                    break
+            else:
+                stall = 0
+            prev_best = min(prev_best, best)
+    finally:
+        f_log.write("f64 refinement finished after %.fs\n" % (time.time() - t0))
+        f_log.close()
+        if covf is not None:
+            covf.close()
+    return carry["x"].cpu().numpy()

@@ -4,6 +4,7 @@
     python3 scripts/torch_80k_fit.py [--sampler vecchia|exact] [--local_dist 0.1 1.0]
                                      [--max_iters N] [--ftol F] [--memory] [--host_seconds S]
                                      [--plain float32 float64] [--keep DIR]
+                                     [--refine_iters N] [--experiments DIR]
 
 Runs the 80k command (``--ntrain 80000 --ntest 500 --nblocks 100 --lscale
 0.021213 --obs_std 0.007071 --yd 50 --task x``, seed 0) through
@@ -25,7 +26,12 @@ adds GPRF-100 on the device engine on the plain twins at each width given
 the kernels' share of a fit's result from float32's; its mad is computed
 at every checkpointed X.  ``--ftol`` passes the device engine's stall
 threshold on (0: never stall).  ``--keep DIR`` copies each fit's log.txt
-and results.txt into DIR.
+and results.txt into DIR.  ``--refine_iters N`` passes the command line's
+float64 tail on (on the card, over LINALG_OPS; at m = 888 it runs only
+under GPRF_REFINE_MAX_M >= 888), and the fit's line then also gives the
+mad at the float32 loop's end and the tail's seconds.  ``--experiments DIR``
+keeps the data and run directories there (default: a temporary directory),
+so that a draw made by another script is read back, not drawn again.
 
 Prints one JSON line per measurement and per fit (the seconds of the draw,
 the fit and the analysis, the iterations, ms per iteration, the capacity m
@@ -117,7 +123,7 @@ def keep_files(d, keep, tag):
                 shutil.copy(os.path.join(d, name), os.path.join(keep, tag, name))
 
 
-def fit(local_dist, max_iters, ftol, card, keep):
+def fit(local_dist, max_iters, ftol, card, keep, refine_iters=0):
     from gprf_torch.analysis.results import load_final_results, load_results
     from gprf_torch.cli import gprfopt
     from gprf_torch.ops import mvn
@@ -127,6 +133,8 @@ def fit(local_dist, max_iters, ftol, card, keep):
         argv += ["--max_iters", str(max_iters)]
     if ftol is not None:
         argv += ["--ftol", str(ftol)]
+    if refine_iters:
+        argv += ["--refine_iters", str(refine_iters)]
     d = gprfopt.exp_dir(gprfopt.build_parser().parse_args(argv))
     out = io.StringIO()
     mvn.reset_launch_counts()
@@ -146,9 +154,25 @@ def fit(local_dist, max_iters, ftol, card, keep):
           "mad_first": float(results[0, 4]), "mad_final": float(final["mad"]),
           "objective_first": float(results[0, 2]), "objective_final": float(final["mll"]),
           "objective_true_x": float(true_row["mll"]), "seconds": seconds,
-          "launches": dict(mvn.launch_counts), "ftol": ftol}, card)
+          "launches": dict(mvn.launch_counts), "ftol": ftol, **refined(d, results)}, card)
     keep_files(d, keep, "%s_%s_%s" % (os.environ.get("GPRF_SAMPLER", "") or "exact", local_dist,
                                        "default" if ftol is None else "ftol%g" % ftol))
+
+
+def refined(d, results):
+    """Where log.txt holds a float64 tail: the float32 loop's iterations, its
+    last row's objective and mad, the tail's iterations and seconds."""
+    with open(os.path.join(d, "log.txt")) as f:
+        lines = f.read().splitlines()
+    tail = [ln for ln in lines if ln.startswith("f64 refinement finished after")]
+    if not tail:
+        return {}
+    end = next(i for i, ln in enumerate(lines) if ln.startswith("optimization finished"))
+    n32 = sum(1 for ln in lines[:end] if ln[:1].isdigit())
+    return {"float32_iterations": n32, "float64_iterations": len(results) - n32,
+            "objective_float32_end": float(results[n32 - 1, 2]),
+            "mad_float32_end": float(results[n32 - 1, 4]),
+            "float64_seconds": float(tail[0].split()[-1].rstrip("s"))}
 
 
 def fit_plain(dtype_name, max_iters, ftol, card, keep):
@@ -222,6 +246,8 @@ def main(argv=None):
     parser.add_argument("--ftol", type=float, default=None)
     parser.add_argument("--plain", nargs="*", default=[], choices=["float32", "float64"])
     parser.add_argument("--keep", default="")
+    parser.add_argument("--refine_iters", type=int, default=0)
+    parser.add_argument("--experiments", default="")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_80k_fit.py: no CUDA device")
@@ -231,12 +257,14 @@ def main(argv=None):
         os.environ["GPRF_SAMPLER"] = "vecchia"
     else:
         os.environ.pop("GPRF_SAMPLER", None)
-    with tempfile.TemporaryDirectory() as base:
+    with contextlib.ExitStack() as stack:
+        base = args.experiments or stack.enter_context(tempfile.TemporaryDirectory())
+        os.makedirs(base, exist_ok=True)
         os.environ["GPRF_EXPERIMENTS"] = base
         if args.memory:
             memory(card)
         for local_dist in args.local_dist:
-            fit(local_dist, args.max_iters, args.ftol, card, args.keep)
+            fit(local_dist, args.max_iters, args.ftol, card, args.keep, args.refine_iters)
         for dtype_name in args.plain:
             fit_plain(dtype_name, args.max_iters, args.ftol, card, args.keep)
         if args.host_seconds:

@@ -296,12 +296,15 @@ def test_parser_has_the_references_flags_and_device():
 
 
 @pytest.mark.parametrize("flags,error", [
-    (["--gplvm_type", "sparse"], NotImplementedError),
-    (["--multistart", "4", "--engine", "device", "--refine_iters", "3"], NotImplementedError),
-    (["--refine_iters", "10", "--engine", "device"], NotImplementedError),
+    (["--gplvm_type", "sparse", "--engine", "device"], ValueError),
+    (["--multistart", "4", "--engine", "device", "--gplvm_type", "bayesian"], ValueError),
+    (["--gplvm_type", "fitc", "--num_inducing", "10"], ValueError),
     (["--schur_precision", "high"], ValueError),
 ])
 def test_refused_flags_raise_before_anything_runs(exp, flags, error):
+    """What no engine serves: a GPLVM baseline on the device engine (the
+    reference's do_run raises the same), an unknown baseline, the coarser
+    Schur precision."""
     with pytest.raises(error):
         tcli.main(SMALL_ARGV + flags)
     assert os.listdir(exp) == []
@@ -309,11 +312,13 @@ def test_refused_flags_raise_before_anything_runs(exp, flags, error):
 
 
 def test_do_run_refuses_what_the_command_line_refuses(exp):
-    for option in (dict(gplvm_type="bayesian"), dict(refine_iters=5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for option in (dict(gplvm_type="bayesian", engine="device"), dict(gplvm_type="fitc")):
+        with pytest.raises(ValueError, match="gplvm_type|GPLVM"):
             tcli.do_run(str(exp), device="cpu", **SMALL, **option)
     with pytest.raises(ValueError):
         tcli.do_run(str(exp), device="cpu", task="y", **SMALL)
+    with pytest.raises(ValueError, match="GPLVM baselines use the host engine"):
+        jcli.do_run(str(exp), engine="device", gplvm_type="sparse", **SMALL)
 
 
 @pytest.mark.parametrize("shape", [dict(B=100, m=136, E=180, dy=50, dx=2),

@@ -1211,3 +1211,108 @@ def test_analyze_full_on_the_card(dev, tmp_path, monkeypatch):
     assert mvn.launch_counts["cholesky"] >= 1 and mvn.launch_counts["mvn_ll_inv"] == 0
     rows = load_results(gprfopt.exp_dir(gprfopt.build_parser().parse_args(argv)))[:, 6:]
     assert np.isfinite(rows).all() and (rows != 0).all() and (rows[:, :2] < 1).all()
+
+
+# ---- the float64 tail and the GPLVM baselines on the card ---------------------
+
+
+@pytest.mark.parametrize("name", ["chol_inv", "mvn_ll", "tri_inv", "mvn_ll_inv", "cholesky"])
+def test_kernels_refuse_float64_on_the_card(dev, name):
+    """The five kernels are float32: a CUDA float64 input raises, launches
+    nothing and never drops to a twin; LINALG_OPS is the float64 route."""
+    K = torch.eye(8, device=dev, dtype=torch.float64).expand(2, 8, 8).contiguous()
+    args = {"mvn_ll": (K, torch.zeros(2, 8, 3, device=dev, dtype=torch.float64),
+                       torch.full((2,), 8.0, device=dev, dtype=torch.float64)),
+            "mvn_ll_inv": (K, torch.zeros(2, 8, 3, device=dev, dtype=torch.float64),
+                           torch.full((2,), 8.0, device=dev, dtype=torch.float64))}.get(name, (K,))
+    mvn.reset_launch_counts()
+    with pytest.raises(TypeError, match="float32"):
+        getattr(mvn, name)(*args)
+    assert not any(mvn.launch_counts.values())
+    out = getattr(mvn.LINALG_OPS, name)(*args)
+    assert all(o.dtype == torch.float64 and o.is_cuda for o in (out if isinstance(out, tuple)
+                                                                   else (out,)))
+    assert not any(mvn.launch_counts.values())
+
+
+@pytest.mark.parametrize("m", [136, 888])
+def test_linalg_ops_on_card_match_the_cpu(dev, m):
+    """cuSOLVER against LAPACK in float64, whole blocks at any width: the
+    MVN density and its gradients."""
+    rng = np.random.default_rng(7)
+    K = _spd(rng, 3, m, n_active=[m, m - 5, m - 40])
+    live = np.arange(m)[None, :, None] < np.array([m, m - 5, m - 40])[:, None, None]
+    Y = rng.normal(size=(3, m, 5)) * live
+    n = [float(m), m - 5.0, m - 40.0]
+    out = {}
+    for where in ("cpu", dev):
+        t = [torch.as_tensor(a, dtype=torch.float64, device=where).requires_grad_(True)
+             for a in (K, Y)]
+        ll = mvn_ll_split(t[0], t[1], torch.tensor(n, dtype=torch.float64, device=where),
+                          ops=mvn.LINALG_OPS)
+        out[str(where)] = (ll.detach().cpu(), *(g.cpu() for g in torch.autograd.grad(ll.sum(), t)))
+    for a, b in zip(out[str(dev)], out["cpu"]):
+        assert torch.allclose(a, b, rtol=1e-10, atol=1e-10 * float(b.abs().max()))
+
+
+def test_refine_iters_on_the_card_launches_no_kernel(dev, tmp_path, monkeypatch):
+    """The command line's float64 tail runs on the card over LINALG_OPS: the
+    float32 loop launches K1-K3, the tail none."""
+    from gprf_torch.cli import gprfopt
+
+    monkeypatch.setenv("GPRF_EXPERIMENTS", str(tmp_path))
+    real, tail = gprfopt.refine_f64, {}
+
+    def counted(*args, **kw):
+        before = dict(mvn.launch_counts)
+        out = real(*args, **kw)
+        tail.update({k: mvn.launch_counts[k] - before[k] for k in before})
+        return out
+
+    monkeypatch.setattr(gprfopt, "refine_f64", counted)
+    argv = ["--ntrain", "400", "--ntest", "50", "--nblocks", "9", "--lscale", "0.1",
+            "--local_dist", "0.1", "--yd", "5", "--task", "xcov", "--engine", "device",
+            "--max_iters", "20", "--refine_iters", "10"]
+    mvn.reset_launch_counts()
+    gprfopt.main(argv)
+    assert all(mvn.launch_counts[k] >= 1 for k in ("chol_inv", "mvn_ll", "tri_inv"))
+    assert set(tail) == set(mvn.launch_counts) and not any(tail.values())
+    d = gprfopt.exp_dir(gprfopt.build_parser().parse_args(argv))
+    with open(os.path.join(d, "log.txt")) as f:
+        steps = [int(line.split()[0]) for line in f if line[0].isdigit()]
+    assert steps == list(range(30))
+
+
+@pytest.mark.parametrize("gplvm_type", ["sparse", "titsias", "bayesian", "basic"])
+def test_gplvm_baselines_on_the_card(dev, tmp_path, monkeypatch, gplvm_type):
+    """Each baseline through the command line on the card (float32), and its
+    first evaluation against float64 on the CPU at float32's jitter (the
+    jitter follows the width: 1e-4 in float32, 1e-6 in float64)."""
+    from gprf_torch.cli import gprfopt
+    from gprf_torch.model import sgplvm
+
+    monkeypatch.setenv("GPRF_EXPERIMENTS", str(tmp_path))
+    argv = ["--ntrain", "400", "--ntest", "50", "--nblocks", "1", "--lscale", "0.1",
+            "--local_dist", "1.0", "--yd", "5", "--task", "x", "--gplvm_type", gplvm_type,
+            "--num_inducing", "40", "--maxsec", "10"]
+    gprfopt.main(argv)
+    d = gprfopt.exp_dir(gprfopt.build_parser().parse_args(argv))
+    with open(os.path.join(d, "log.txt")) as f:
+        values = [float(line.split()[2]) for line in f if line[0].isdigit()]
+    assert len(values) >= 3 and np.isfinite(values).all() and max(values) > values[0]
+    rng = np.random.default_rng(2)
+    X, Z, Y = rng.uniform(size=(300, 2)), rng.uniform(size=(40, 2)), rng.normal(size=(300, 5))
+    got = {}
+    monkeypatch.setattr(sgplvm, "_rel_jitter", lambda dtype: 1e-4)
+    for where, dt in ((dev, torch.float32), ("cpu", torch.float64)):
+        t = [torch.as_tensor(a, dtype=dt, device=where) for a in (X, Z, np.log(0.1), Y)]
+        if gplvm_type == "bayesian":
+            got[dt] = sgplvm._bgplvm_objective_and_grads(
+                t[0], torch.full_like(t[0], np.log(4e-4)), t[1], t[2], t[3], 1.0, 0.01, True)
+        else:
+            got[dt] = sgplvm._objective_and_grads(*t, 1.0, 0.01, gplvm_type, True)
+    ll32, ll64 = float(got[torch.float32][0]), float(got[torch.float64][0])
+    assert abs(ll32 - ll64) <= 1e-4 * abs(ll64)
+    g32 = torch.cat([g.reshape(-1).double().cpu() for g in got[torch.float32][1:]])
+    g64 = torch.cat([g.reshape(-1) for g in got[torch.float64][1:]])
+    assert float(g32 @ g64 / (g32.norm() * g64.norm())) > 0.999

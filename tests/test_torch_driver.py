@@ -141,11 +141,17 @@ def test_cov_row_helpers_match_jax():
         tdriver._full_cov(np.ones((1, 2)), None, 2, 0.01)
 
 
-def test_unported_drivers_raise():
-    # the seismic and multistart drivers are ported (tests/test_torch_seismic.py,
-    # tests/test_torch_multistart.py); the float64 refinement is not
+def test_unported_drivers_raise(tmp_path, data):
+    # the seismic and multistart drivers and the float64 refinement are ported
+    # (tests/test_torch_seismic.py, tests/test_torch_multistart.py,
+    # tests/test_torch_refine.py); what a driver still refuses is the sparse llgrad
+    t, _ = data
+    gprf = t.build_gprf(local_dist=0.1, **F64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlbfgs.refine_f64()
+        tdriver.do_optimization_seismic(str(tmp_path), gprf, None,
+                                        np.array([[0.01, 1.0, 0.15, 0.15]]),
+                                        lambda c: (0.0, np.zeros_like(c)), None, sparse=True)
+    assert callable(tlbfgs.refine_f64)
 
 
 # ---- the device-loop drivers -------------------------------------------------

@@ -539,10 +539,43 @@ def test_run_seismic_host_engine_matches_jax(seismic_exp, monkeypatch, few_scipy
 
 def test_run_seismic_refuses_what_is_not_ported_and_wants_a_gpu(seismic_exp):
     base, data = seismic_exp
-    for extra in (["--sparse"], ["--engine", "device", "--refine_iters", "5"]):
+    # --refine_iters runs (test_run_seismic_refine_matches_jax); --sparse is refused
+    for extra in (["--sparse"], ["--engine", "host", "--sparse"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tcli.main(ARGV + data + extra + ["--device", "cpu"])
     assert not os.path.exists(base / "exp")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             tcli.main(ARGV + data)
+
+
+def test_run_seismic_refine_matches_jax(seismic_exp, monkeypatch):
+    """The device engine for 20 iterations and the float64 tail for 10, in
+    float64 against the reference's: the log goes on from 20, covs.txt too,
+    results.txt scores every row."""
+    from gprf_tpu.model import fused_seismic as jfs
+
+    class Float64Fused(jfs.FusedSeismicGPRF):
+        def __init__(self, *args, dtype=None, **kw):
+            super().__init__(*args, dtype=jnp.float64, **kw)
+
+    monkeypatch.setattr(jfs, "FusedSeismicGPRF", Float64Fused)
+    base, data = seismic_exp
+    argv = ARGV + data + ["--engine", "device", "--max_iters", "20", "--refine_iters", "10"]
+    args = tcli.build_parser().parse_args(argv + ["--device", "cpu"])
+    d = tcli.seismic_exp_dir(args)
+    tcli.do_run(args, device="cpu", dtype=torch.float64)
+    monkeypatch.setenv("SEISMIC_EXPERIMENTS", str(base / "jax"))
+    jcli.main(argv)
+    jd = jcli.seismic_exp_dir(jcli.build_parser().parse_args(argv))
+    (ts, tv), (js, jv) = _log(d), _log(jd)
+    assert list(ts) == list(js) == list(range(30))
+    np.testing.assert_allclose(tv, jv, rtol=RTOL, atol=LOG_ATOL)
+    with open(os.path.join(d, "log.txt")) as f:
+        assert f.read().splitlines()[-1].startswith("f64 refinement finished after")
+    with open(os.path.join(d, "covs.txt")) as f, open(os.path.join(jd, "covs.txt")) as g:
+        steps = [r.split()[0] for r in f.read().replace("\n ", " ").splitlines()]
+        assert steps == [r.split()[0] for r in g.read().replace("\n ", " ").splitlines()]
+        assert steps[-1] == "29"
+    with open(os.path.join(d, "results.txt")) as f:
+        assert len(f.read().splitlines()) == 31
