@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of gprf_torch on one card: the kernels, the flagship
 fused-Schur L-BFGS path on each of the objective's three routes, multistart,
-and the synthetic and seismic experiments end to end through their command
-lines.
+the synthetic and seismic experiments end to end through their command
+lines, the kernelized and sparse llgrads and the analysis tools.
 
     python3 chip_smoke.py        (from the repository root; needs one CUDA device)
 
@@ -142,11 +142,35 @@ Phases, each of which raises on failure (exit code 1, no result line):
              K1-K5 launch inside the tail, ms per float64 iteration.  On the
              80k phase's data (m = 888): the default cap skips the tail with
              its message, GPRF_REFINE_MAX_M=1024 runs it 2 steps a dispatch.
+18. kernelized - GPRF(kernelized=True) on the cli phase's data, YY =
+             SY SY^T [10,000, 10,000] formed once on the card (B = 100, E =
+             342, m = 136; each pair a 272-wide term, split into K1 leaves
+             of 136): one loss+grad on the kernels against the twins in
+             float32 (RTOL_LOSS, MIN_GRAD_COSINE), counted: K1 and no other
+             kernel; the float64 objective (LINALG_OPS) against the float64
+             Schur form on SY (RTOL_JOINT); K1 against its twin on this
+             path's inputs ([100,136,136], [342,136,136]); the device-busy
+             ms, launches and host-clock ms of one loss+grad; the scipy
+             driver for KERNELIZED_EVALS evaluations, counters reset before
+             and read after: the objective rises, K1 launched and no other.
+19. tools  - ``python -m gprf_torch.cli.analyze gen-runs``: three scripts
+             of ``gprf_torch.cli.gprfopt`` commands; the paper's figure
+             series (``analysis/paper_figures.py``) of the cli phase's run,
+             found under the truegp suite's GPRF-100 name; ``device_trace``
+             around one flagship loss+grad: a trace that names K1-K3.
+20. sparse - ``run_seismic.main --engine host --sparse`` on the seismic
+             phase's data at SPARSE_FLAGS (2,000 events) for
+             SPARSE_SECONDS: the files, at least 3 rows, a rising
+             objective, seconds an evaluation; then on the whole catalog's
+             first 8 PD-tree blocks ``llgrad(sparse=True)`` at a support
+             radius of 1e3 lengthscales against the dense float64 llgrad
+             (LINALG_OPS), and the gap at the default radius 5; the seconds
+             of one sparse llgrad of the whole catalog.
 
 The smoke's total seconds are logged before the result lines.
 
 Output: a JSON line describing each kernel (its launches on the main path
-and in the cli, rpc, predict, seismic and eighty phases, its max abs error against
+and in the cli, rpc, predict, seismic, eighty and kernelized phases, its max abs error against
 its twin, its ms, its twin's, its library call's and its bound), the
 nvidia-smi line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -228,6 +252,21 @@ EIGHTY_SAMPLER = "vecchia"
 EIGHTY_ITERS = 40
 EIGHTY_CHUNK = 64  # FusedSyntheticGPRF's pair chunk past m = 512
 OUR_KERNELS = ("chol_inv_kernel", "mvn_kernel", "tri_inv_kernel")  # K1-K3 in a profiler trace
+# The kernelized objective (phase 18): the scipy driver's evaluations over it
+KERNELIZED_EVALS = 20
+# --sparse on the seismic host engine (phase 20): the seismic command on the
+# last 2,000 events of the catalog (the reference's --npts), for
+# SPARSE_SECONDS, since one evaluation of all 12,000 events takes tens of
+# seconds (the phase times one).
+# Then the sparse llgrad on the whole catalog's first SPARSE_SUB_BLOCKS blocks,
+# at a support radius that keeps every pair, against the dense float64 llgrad:
+# the same function by two algebras (RTOL_JOINT on the objective, gprf_tpu's
+# own tests' 1e-7 on the gradients)
+SPARSE_FLAGS = ["--npts=2000"] + SEISMIC_FLAGS[1:]
+SPARSE_SECONDS = 12
+SPARSE_SUB_BLOCKS = 8
+SPARSE_EXACT_DISTANCE = 1e3
+SPARSE_GRAD_RTOL = 1e-7
 # docs/runs/gprf80k_device/results.txt: row 0's objective and the trueX row's
 JAX_EIGHTY_LL = (-52381247.52, 2765341.28)
 # the float64 joint form (torch.linalg) against the float64 Schur split (the
@@ -992,6 +1031,197 @@ def run_predict(d, data, cases, torch):
                 gp_ll=gp_ll, gp_s=gp_s, parts=parts)
 
 
+def run_kernelized(data, cli, cases, torch):
+    """Phase 18: the kernelized (second-moment) objective on the cli phase's
+    data, YY = SY SY^T formed once on the card."""
+    from gprf_torch.bench import kernel_events
+    from gprf_torch.model.gprf import GPRF
+    from gprf_torch.model.kernelized import kernelized_ll
+    from gprf_torch.model.objective import GPRFParams
+    from gprf_torch.ops import mvn, split_mvn
+    from gprf_torch.optim.driver import OutOfTimeError, do_optimization
+
+    schur = data.build_gprf(local_dist=0.1, device="cuda", dtype=torch.float32)
+    B, E, m = schur.n_blocks, len(schur.neighbors), schur.layout.block_pad
+    if (E, m) != (CLI_EDGES, M0):
+        raise AssertionError(f"the kernelized phase's layout is E={E}, m={m}")
+    SY = torch.as_tensor(data.SY, dtype=torch.float64, device="cuda")
+    YY64 = SY @ SY.T
+    layout = dict(block_idxs=schur.block_idxs, neighbors=schur.neighbors)
+    kw = dict(kernelized=True, dy=DY, device="cuda", **layout)
+    k32 = GPRF(data.X_obs, YY64.float(), data.reblock, data.cov, data.noise_var,
+               dtype=torch.float32, **kw)
+
+    # one loss+grad on the kernels (counted) against the twins, float32
+    torch.cuda.synchronize()
+    mvn.reset_launch_counts()
+    ll_k, gX_k, _ = k32.llgrad(grad_X=True)
+    torch.cuda.synchronize()
+    one_eval = dict(mvn.launch_counts)
+    k32.ops = mvn.PLAIN_OPS
+    ll_p, gX_p, _ = k32.llgrad(grad_X=True)
+    k32.ops = mvn.KERNEL_OPS
+    loss_rel = abs(ll_k - ll_p) / abs(ll_p)
+    cosine = float(np.sum(gX_k * gX_p) / (np.linalg.norm(gX_k) * np.linalg.norm(gX_p)))
+    log(f"kernelized (YY = SY SY^T [{len(data.SY)}, {len(data.SY)}] on the card; B={B}, E={E}, "
+        f"m={m}, pairs at 2m={2 * m}): float32 kernels {ll_k:.4f} against the twins {ll_p:.4f}, "
+        f"rel {loss_rel:.3e} (limit {RTOL_LOSS}), gradient cosine {cosine:.8f}; launches of one "
+        f"loss+grad {one_eval}")
+    if not (loss_rel <= RTOL_LOSS and cosine > MIN_GRAD_COSINE):
+        raise AssertionError(f"kernelized: kernels against twins, rel {loss_rel}, cos {cosine}")
+    check_launches("one kernelized loss+grad", one_eval, ("chol_inv",),
+                   ("mvn_ll", "tri_inv", "mvn_ll_inv", "cholesky"))
+
+    # float64: the kernelized objective against the Schur form on SY, both on LINALG_OPS
+    f64 = dict(dtype=torch.float64, ops=mvn.LINALG_OPS)
+    k64 = GPRF(data.X_obs, YY64, data.reblock, data.cov, data.noise_var, **f64, **kw)
+    s64 = GPRF(data.X_obs, data.SY, data.reblock, data.cov, data.noise_var, device="cuda",
+               **f64, **layout)
+    (lk, gk, _), (ls, gs, _) = k64.llgrad(grad_X=True), s64.llgrad(grad_X=True)
+    f64_rel = abs(lk - ls) / abs(ls)
+    f64_grad = float(np.abs(gk - gs).max() / np.abs(gs).max())
+    f32_rel = abs(ll_k - lk) / abs(lk)
+    log(f"kernelized float64 (LINALG_OPS) {lk:.6f} against the float64 Schur form on SY "
+        f"{ls:.6f}: rel {f64_rel:.3e} (limit {RTOL_JOINT}), gradient rel {f64_grad:.3e}; the "
+        f"float32 kernels from float64: rel {f32_rel:.3e}")
+    if not f64_rel <= RTOL_JOINT:
+        raise AssertionError(f"kernelized float64 against the Schur form: rel {f64_rel}")
+    del k64, s64, YY64
+
+    # K1 against its twin on the inputs this path gives it: the unary blocks
+    # and the pairs' first leaves (the 2m-wide pairs split into leaves of m)
+    inputs = recorded_inputs(k32, lambda: k32.llgrad(), every_shape=True)["chol_inv"]
+    kernels = [dict(shape=list(args[0].shape),
+                    **compare(cases["chol_inv"], args, torch, what="kernelized path: "))
+               for args in inputs]
+    leaf = 2 * m if 2 * m <= split_mvn.LEAF_CHOL else split_mvn.split_point(2 * m)
+    if [k["shape"] for k in kernels] != [[B, m, m], [E, leaf, leaf]]:
+        raise AssertionError(f"kernelized path: K1 held at {[k['shape'] for k in kernels]}")
+
+    # one loss+grad of the objective alone: device time, launches, host clock
+    arrays = k32._device_arrays()
+    names = ("assignment", "mask", "pair_assignment", "pair_mask", "unary_weights",
+             "pair_weights")
+    nv = torch.tensor(data.noise_var, dtype=torch.float32, device="cuda")
+
+    def loss(x):
+        p = GPRFParams(X=x.reshape(-1, 2), wfn_params=k32.cov.wfn_params,
+                       dfn_params=k32.cov.dfn_params, noise_var=nv)
+        return -kernelized_ll(p, k32._Y_dev, *(arrays[k] for k in names), DY)
+
+    x0 = torch.as_tensor(data.X_obs.reshape(-1), dtype=torch.float32, device="cuda")
+    events = kernel_events(loss, x0)
+    busy, n_launch = sum(us for _, us in events) / 5e3, len(events) / 5
+    by_name = {}
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us / 5e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    (eval_ms,) = eval_ms_in_turns([loss], x0, torch)
+    log(f"kernelized loss+grad: device busy {busy:.3f} ms ({n_launch:.0f} launches), host clock "
+        f"{eval_ms:.3f} ms (median of 20); the Schur route's on this data (cli phase): "
+        f"{cli['device_busy_ms']:.3f} ms ({cli['device_launches']:.0f} launches), "
+        f"{cli['eval_ms']:.3f} ms; the costliest kernels (ms a loss+grad): "
+        + "; ".join(f"{name[:90]} {ms:.3f}" for name, ms in top))
+
+    # the main path: the scipy driver over the kernelized model, 20 evaluations
+    class Stopping:
+        """The model, ending do_optimization's loop after `limit`
+        evaluations, as its time limit does."""
+
+        def __init__(self, gprf, limit):
+            self.gprf, self.limit, self.calls = gprf, limit, 0
+
+        def llgrad(self, **kw):
+            if self.calls == self.limit:
+                raise OutOfTimeError
+            self.calls += 1
+            return self.gprf.llgrad(**kw)
+
+        def __getattr__(self, name):
+            return getattr(self.gprf, name)
+
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        mvn.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            do_optimization(d, Stopping(k32, KERNELIZED_EVALS), data.X_obs, None, data)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = dict(mvn.launch_counts)
+        steps, values = read_log(d)
+    log(f"kernelized scipy driver: {len(steps)} evaluations in {fit_s:.2f} s "
+        f"({fit_s / len(steps) * 1e3:.1f} ms each with re-blocking, upload and checkpoint); "
+        f"objective {values[0]:.2f} -> {values.max():.2f}; launches {launches}")
+    if not (len(steps) == KERNELIZED_EVALS and values.max() > values[0]):
+        raise AssertionError(f"kernelized driver: {len(steps)} evaluations, objective {values}")
+    check_launches("the kernelized driver", launches, ("chol_inv",),
+                   ("mvn_ll", "tri_inv", "mvn_ll_inv", "cholesky"))
+    return dict(blocks=B, edges=E, m=m, loss=[ll_k, ll_p], loss_rel=loss_rel, cosine=cosine,
+                one_eval_launches=one_eval, f64=[lk, ls], f64_rel=f64_rel,
+                f64_grad_rel=f64_grad, f32_from_f64_rel=f32_rel, kernels=kernels,
+                device_busy_ms=busy, device_launches=n_launch, eval_ms=eval_ms,
+                costliest_kernels_ms=dict(top), evaluations=len(steps), objective=[float(values[0]), float(values.max())],
+                ms_per_evaluation=fit_s / len(steps) * 1e3, launches=launches)
+
+
+def run_tools(base, cli, data, torch):
+    """Phase 19: the analysis command line, the paper's figure series of
+    the cli phase's run and a device trace."""
+    from gprf_torch.analysis import fleet, paper_figures
+    from gprf_torch.cli import analyze, gprfopt
+    from gprf_torch.optim.lbfgs import value_and_grad
+    from gprf_torch.utils.profiling import device_trace
+
+    out = os.path.join(base, "fleet")
+    os.makedirs(out)
+    with contextlib.redirect_stdout(sys.stderr):
+        analyze.main(["gen-runs", "--out_dir", out])
+    scripts = {}
+    for name in ("run_eighty.sh", "run_truegp.sh", "run_fitc.sh"):
+        with open(os.path.join(out, name)) as f:
+            lines = f.read().splitlines()
+        if not lines or any("python -m gprf_torch.cli.gprfopt " not in r for r in lines):
+            raise AssertionError(f"{name}: {lines[:2]}")
+        scripts[name] = len(lines)
+
+    # the truegp suite's GPRF-100 row is the cli phase's run
+    cli_dir = cli["dir"]
+    by_key = {"GPRF-100": fleet.truegp_run_params()[1]["GPRF-100"]}
+    if gprfopt.build_run_name(by_key["GPRF-100"][0]) != os.path.basename(cli_dir):
+        raise AssertionError(f"{gprfopt.build_run_name(by_key['GPRF-100'][0])} is not the cli "
+                             f"run's directory {cli_dir}")
+    times, envelope = paper_figures.suite_series(os.path.dirname(cli_dir), by_key,
+                                                 gprfopt.build_run_name)["GPRF-100"]
+    final = paper_figures.final_error_vs_time(os.path.dirname(cli_dir), by_key,
+                                              gprfopt.build_run_name)["GPRF-100"]
+    if not (len(times) == cli["iterations"] and np.all(np.diff(envelope) <= 0)
+            and np.isclose(envelope[-1], min(envelope))):
+        raise AssertionError(f"figure series: {len(times)} points, envelope {envelope[:3]}...")
+    log(f"tools: gen-runs wrote {scripts}; the cli run's figure series: {len(times)} points, "
+        f"best mad x sqrt(n) {envelope[0]:.5f} -> {envelope[-1]:.5f}; final (time, mad) {final}")
+
+    fused = cli_engine(data, torch)
+    x0 = torch.as_tensor(data.X_obs.reshape(-1), dtype=torch.float32, device="cuda")
+    loss = fused.loss_fn()
+    value_and_grad(loss, x0)
+    log_dir = os.path.join(base, "trace")
+    with device_trace(log_dir):
+        value_and_grad(loss, x0)
+        torch.cuda.synchronize()
+    (name,) = os.listdir(log_dir)
+    with open(os.path.join(log_dir, name)) as f:
+        trace = f.read()
+    found = {k: trace.count(k) for k in OUR_KERNELS}
+    log(f"device_trace of one flagship loss+grad: {name}, {len(trace)} bytes, kernel names "
+        f"{found}")
+    if not all(found.values()):
+        raise AssertionError(f"the trace lacks K1-K3: {found}")
+    return dict(scripts=scripts, series_points=len(times),
+                envelope=[float(envelope[0]), float(envelope[-1])], final=list(final),
+                trace_bytes=len(trace), trace_kernels=found)
+
+
 def run_rpc(base, cases, torch):
     """Phase 8: the command line's flagship over an RPC partition
     (--rpc_blocksize 200) on the device engine."""
@@ -1359,6 +1589,74 @@ def run_seismic_host(base, data, torch):
     return dict(evaluations=len(steps), ms_per_evaluation=ms,
                 objective=[float(values[0]), float(values.max())], launches=launches,
                 seconds={k: info[k] for k in ("sample_s", "fit_s", "analyze_s")})
+
+
+def run_sparse(base, seismic_data, torch):
+    """Phase 20: ``--sparse`` on the seismic host engine, and the sparse
+    llgrad against the dense one on an 8-block sub-model."""
+    from gprf_torch.cli import run_seismic
+    from gprf_torch.model.gprf import GPRF
+    from gprf_torch.ops import mvn
+
+    os.environ["SEISMIC_EXPERIMENTS"] = os.path.join(base, "sparse")
+    argv = SPARSE_FLAGS + ["--data_dir", seismic_data, "--engine", "host", "--sparse",
+                           "--maxsec", str(SPARSE_SECONDS)]
+    d = run_seismic.seismic_exp_dir(run_seismic.build_parser().parse_args(argv))
+    with contextlib.redirect_stdout(sys.stderr):
+        info = run_seismic.main(argv)
+    files = sorted(os.listdir(d))
+    steps, values = read_log(d)
+    s_per_eval = info["fit_s"] / len(steps)
+    log(f"seismic --sparse (host engine, {SPARSE_FLAGS[0]}, the 12,000-event command shrunk): "
+        f"{info['blocks']} blocks, {info['edges']} edges; {len(steps)} evaluations in "
+        f"{info['fit_s']:.2f} s, {s_per_eval:.3f} s each; objective {values[0]:.2f} -> "
+        f"{values.max():.2f}")
+    wanted = ["log.txt", "covs.txt", "results.txt", "finished", "step_00000_X.npy"]
+    if [f for f in wanted if f not in files] or not (len(steps) >= 3
+                                                      and values.max() > values[0]):
+        raise AssertionError(f"seismic --sparse: files {files}, objective {values}")
+
+    # the full catalog's first 8 PD-tree blocks and their edges, float64
+    args = run_seismic.build_parser().parse_args(SEISMIC_FLAGS + ["--data_dir", seismic_data])
+    p = run_seismic.build_problem(args, device="cuda", dtype=torch.float64)
+    g = p["gprf"]
+    blocks = g.block_idxs[:SPARSE_SUB_BLOCKS]
+    idx = np.concatenate(blocks)
+    local = np.empty(len(g.X), dtype=np.int64)
+    local[idx] = np.arange(len(idx))
+    edges = [(i, j) for i, j in g.neighbors if i < SPARSE_SUB_BLOCKS and j < SPARSE_SUB_BLOCKS]
+    sub = GPRF(p["means"][idx], p["SY"][idx], None, g.cov, g.noise_var,
+               block_idxs=[local[b] for b in blocks], neighbors=edges, device="cuda",
+               dtype=torch.float64, ops=mvn.LINALG_OPS)
+    dense = sub.llgrad(grad_X=True, grad_cov=True)
+    gaps = {}
+    for md in (SPARSE_EXACT_DISTANCE, 5.0):
+        t0 = time.perf_counter()
+        sparse = sub.llgrad(grad_X=True, grad_cov=True, sparse=True, max_distance=md)
+        gaps[md] = dict(
+            seconds=time.perf_counter() - t0, ll_rel=abs(sparse[0] - dense[0]) / abs(dense[0]),
+            gradX_rel=float(np.abs(sparse[1] - dense[1]).max() / np.abs(dense[1]).max()),
+            gradC_rel=float(np.abs(sparse[2] - dense[2]).max() / np.abs(dense[2]).max()))
+        log(f"sparse llgrad on {SPARSE_SUB_BLOCKS} blocks ({len(idx)} events, {len(edges)} "
+            f"edges) at max_distance {md:g} against the dense float64 llgrad (LINALG_OPS): "
+            f"{gaps[md]}")
+    # one sparse evaluation of the whole catalog, the one --npts spared
+    t0 = time.perf_counter()
+    g.llgrad(grad_X=True, grad_cov=True, sparse=True)
+    whole_s = time.perf_counter() - t0
+    log(f"one sparse llgrad of the whole catalog ({len(g.X)} events, {g.n_blocks} blocks, "
+        f"{len(g.neighbors)} edges): {whole_s:.2f} s on the host")
+    exact = gaps[SPARSE_EXACT_DISTANCE]
+    if not (exact["ll_rel"] <= RTOL_JOINT and exact["gradX_rel"] <= SPARSE_GRAD_RTOL
+            and exact["gradC_rel"] <= SPARSE_GRAD_RTOL):
+        raise AssertionError(f"the sparse llgrad at max_distance {SPARSE_EXACT_DISTANCE:g} "
+                             f"is not the dense one: {exact}")
+    return dict(blocks=info["blocks"], edges=info["edges"], evaluations=len(steps),
+                s_per_evaluation=s_per_eval, whole_catalog_s=whole_s,
+                objective=[float(values[0]), float(values.max())],
+                seconds={k: info[k] for k in ("sample_s", "fit_s", "analyze_s")},
+                sub_model=dict(blocks=SPARSE_SUB_BLOCKS, events=len(idx), edges=len(edges),
+                               gaps={str(k): v for k, v in gaps.items()}))
 
 
 def check_remat_launches(fwd, both, nch):
@@ -1919,6 +2217,8 @@ def main():
         with tempfile.TemporaryDirectory() as base, tempfile.TemporaryDirectory() as host_base:
             cli, data = run_cli(base, cases, torch)
             predict = run_predict(cli["dir"], data, cases, torch)
+            kernelized = run_kernelized(data, cli, cases, torch)
+            tools = run_tools(base, cli, data, torch)
             rpc = run_rpc(base, cases, torch)
             host = run_host(host_base, data, cases, torch)
             resume = run_resume(host_base, data, torch)
@@ -1927,6 +2227,7 @@ def main():
         with tempfile.TemporaryDirectory() as base:
             seismic, seismic_data = run_seismic_device(base, cases, torch)
             seismic_host = run_seismic_host(base, seismic_data, torch)
+            sparse = run_sparse(base, seismic_data, torch)
             refine["seismic"] = run_refine_seismic(base, seismic_data, smi, torch)
         with tempfile.TemporaryDirectory() as base:
             eighty = run_eighty(base, cases, torch)
@@ -1943,12 +2244,14 @@ def main():
         report[name]["rpc_launches"] = rpc["launches"][name]
         report[name]["predict_launches"] = predict["launches"][name]
         report[name]["eighty_launches"] = eighty["launches"][name]
+        report[name]["kernelized_launches"] = kernelized["launches"][name]
         if name in cli["kernels"]:  # the same kernel at the command line's, RPC, seismic and 80k shapes
             report[name]["cli"] = cli["kernels"][name]
             report[name]["rpc"] = rpc["kernels"][name]
             report[name]["seismic"] = {r: seismic[r]["kernels"][name] for r in SEISMIC_R}
             report[name]["eighty"] = eighty["kernels"][name]
     report["cholesky"]["predict"] = predict.pop("block_caches_kernel")
+    report["chol_inv"]["kernelized"] = kernelized.pop("kernels")
     del rpc["kernels"], eighty["kernels"]
     for r in SEISMIC_R:
         del seismic[r]["kernels"]
@@ -1962,7 +2265,8 @@ def main():
                   "cli": cli, "predict": predict, "rpc": rpc, "host": host, "resume": resume,
                   "bench": bench_record,
                   "multistart": multistart, "seismic": seismic, "seismic_host": seismic_host,
-                  "eighty": eighty, "baselines": baselines, "refine": refine},
+                  "eighty": eighty, "baselines": baselines, "refine": refine,
+                  "kernelized": kernelized, "tools": tools, "sparse": sparse},
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,1 +1,1 @@
-"""Results protocol (mirror of ``gprf_tpu/analysis``)."""
+"""Results protocol, figure data, plots and the run fleet (mirror of ``gprf_tpu/analysis``)."""

@@ -14,7 +14,10 @@ reference's, plus ``--device`` (default ``cuda``; without a CUDA device the
 default raises, and only ``--device cpu`` runs on the CPU).
 ``--refine_iters`` follows the device engine with the float64 tail of
 :func:`~gprf_torch.optim.lbfgs.refine_f64` on the run's device.
-``--sparse`` is refused.
+``--sparse`` runs the host engine over the truncated-support sparse llgrad
+(host float64, :mod:`gprf_torch.model.sparse_llgrad`); with ``--engine
+device``, which has no sparse path, it raises before anything runs (the
+reference ignores it there).
 """
 
 from __future__ import annotations
@@ -104,7 +107,7 @@ def build_parser():
     add("--synth_lscale", dest="synth_lscale", default=40.0, type=float, help="Matern lengthscale (km) for generating Y values")
     add("--seed", dest="seed", default=0, type=int, help="seed for sampling")
     add("--maxsec", dest="maxsec", default=3600, type=int, help="maximum seconds of inference")
-    add("--sparse", dest="sparse", default=False, action="store_true", help="truncated-support sparse per-block linear algebra (not ported yet)")
+    add("--sparse", dest="sparse", default=False, action="store_true", help="host engine: truncated-support sparse per-block linear algebra (native sparse Cholesky + selected inverse); NOT inducing-point sparsity; refused by the device engine")
     add("--analyze", dest="analyze", default=False, action="store_true", help="only generate results from saved state")
     add("--rpc_blocksize", dest="rpc_blocksize", default=300, type=int, help="max points per PD-tree block")
     add("--init_cov", dest="init_cov", default="", type=str, help="initialize cov params from .npy")
@@ -123,10 +126,10 @@ def build_parser():
 
 
 def refuse_unported(args):
-    """Raise for an option of the reference that the port does not serve."""
-    if args.sparse:
-        raise NotImplementedError("--sparse: the sparse per-block llgrad is not ported yet "
-                                  "(ROADMAP, still to port: the kernelized and sparse llgrads)")
+    """Raise for an option that the chosen engine does not serve."""
+    if args.sparse and args.engine == "device":
+        raise ValueError("--sparse runs on the host engine only (--engine host): the device "
+                         "engine has no sparse path")
 
 
 def multistart_thetas(theta0, task, nx, count, seed):

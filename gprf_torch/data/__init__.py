@@ -1,1 +1,1 @@
-"""Synthetic experiment data (mirror of ``gprf_tpu/data``)."""
+"""Experiment data: synthetic and seismic, and the seismic data pipeline (mirror of ``gprf_tpu/data``)."""

@@ -8,7 +8,8 @@ contracts, so the optimization driver and the analysis translate
 one-to-one.  All compute is the batched objective
 (:mod:`gprf_torch.model.objective`): the Schur form (``form="schur"``,
 the default) or the joint form, the reference's parity oracle
-(``form="joint"``), over a padded
+(``form="joint"``), or with ``kernelized=True`` the second-moment
+objective of :mod:`gprf_torch.model.kernelized`, over a padded
 :class:`~gprf_torch.partition.layout.BlockLayout`; ``update_X`` replays the
 partitioner's fixed splits on the host and uploads the gather tensors
 again.  Wide batches are chunked under the reference's memory budget
@@ -17,6 +18,9 @@ again.  Wide batches are chunked under the reference's memory budget
 The model computes on the ``device`` and at the ``dtype`` it is given and
 decides nothing itself: the kernel wrappers launch their CUDA kernels on
 float32 CUDA tensors and run their plain twins on CPU tensors.
+``llgrad(sparse=True)`` is the exception: the truncated-support sparse
+path (:mod:`gprf_torch.model.sparse_llgrad`) runs on the host in float64
+whatever the model's device, as in the reference.
 """
 
 from __future__ import annotations
@@ -25,10 +29,12 @@ import numpy as np
 import torch
 
 from gprf_torch.kernels.gpcov import GPCov
+from gprf_torch.model.kernelized import kernelized_value_and_grad
 from gprf_torch.model.neighbors import compute_neighbors as _compute_neighbors
 from gprf_torch.model.objective import (GPRFParams, gprf_value_and_grad,
                                         gprf_value_and_grad_schur)
 from gprf_torch.model.predict import train_predictor
+from gprf_torch.model.sparse_llgrad import gaussian_llgrad_sparse
 from gprf_torch.ops.mvn import KERNEL_OPS, Ops
 from gprf_torch.partition.layout import BlockLayout
 
@@ -50,7 +56,9 @@ class GPRF:
     """Block-factored GP random field over latent inputs X and outputs Y.
 
     X : [n, dx] latent input locations (host NumPy; replaced by update_X)
-    Y : [n, dy] observations
+    Y : [n, dy] observations, or with ``kernelized`` the [n, n] second
+        moments Y Y^T of ``dy`` features (an array, or a tensor that may
+        already sit on the device; put on the device once)
     block_fn : callable X -> list of index arrays (replayable partitioner),
         or None to freeze the initial partition
     cov : GPCov kernel hyperparameters
@@ -73,9 +81,8 @@ class GPRF:
                  device: torch.device | str, dtype: torch.dtype, ops: Ops = KERNEL_OPS):
         if nonstationary:
             raise NotImplementedError("nonstationary GPRF is not supported (nor by gprf_tpu)")
-        if kernelized:
-            raise NotImplementedError("second-moment observations (kernelized=True) are not "
-                                      "ported yet (ROADMAP, still to port: model/kernelized.py)")
+        if kernelized and dy is None:
+            raise ValueError("kernelized=True needs dy, the number of features behind YY")
         if form not in ("schur", "joint"):
             raise ValueError(f"unknown form {form!r}: 'schur' or 'joint'")
         if mesh is not None:
@@ -85,8 +92,14 @@ class GPRF:
         self.dtype = dtype
         self.ops = ops
         self.X = np.asarray(X, dtype=np.float64).copy()
-        self.Y = np.asarray(Y)
-        self._Y_dev = torch.as_tensor(self.Y, dtype=dtype, device=self.device)
+        self.kernelized = kernelized
+        if kernelized:  # YY as given (an array, or a tensor that may sit on the device)
+            self.dy = dy
+            self.YY = Y
+            self._Y_dev = torch.as_tensor(Y, dtype=dtype, device=self.device)
+        else:
+            self.Y = np.asarray(Y)
+            self._Y_dev = torch.as_tensor(self.Y, dtype=dtype, device=self.device)
         self.cov = cov.to(device=self.device, dtype=dtype)
         self.noise_var = float(noise_var)
         self.block_fn = block_fn
@@ -173,16 +186,23 @@ class GPRF:
                             dfn_params=self.cov.dfn_params,
                             noise_var=self._tensor(self.noise_var))
         common = dict(dfn_str=self.cov.dfn_str, wfn_str=self.cov.wfn_str, grad_X=grad_X,
-                      grad_cov=grad_cov, pair_chunk=self._pair_chunk_for(arrays))
-        if self.form == "joint":
+                      grad_cov=grad_cov)
+        if self.kernelized:  # no chunks: the reference evaluates every term at once
+            ll, gX, gC = kernelized_value_and_grad(
+                params, Y, arrays["assignment"], arrays["mask"], arrays["pair_assignment"],
+                arrays["pair_mask"], arrays["unary_weights"], arrays["pair_weights"], self.dy,
+                ops=self.ops, **common)
+        elif self.form == "joint":
             ll, gX, gC = gprf_value_and_grad(
                 params, Y, arrays["assignment"], arrays["mask"], arrays["pair_assignment"],
                 arrays["pair_mask"], arrays["unary_weights"], arrays["pair_weights"],
-                unary_chunk=self._unary_chunk_for(arrays), **common)
+                unary_chunk=self._unary_chunk_for(arrays),
+                pair_chunk=self._pair_chunk_for(arrays), **common)
         else:
             ll, gX, gC = gprf_value_and_grad_schur(
                 params, Y, arrays["assignment"], arrays["mask"], arrays["edges"],
-                arrays["unary_weights"], arrays["pair_weights"], ops=self.ops, **common)
+                arrays["unary_weights"], arrays["pair_weights"], ops=self.ops,
+                pair_chunk=self._pair_chunk_for(arrays), **common)
         # one transfer for the three results; float64 copies, since the
         # drivers add priors to them in place
         flat = torch.cat([ll.reshape(1).to(gX.dtype), gX.reshape(-1), gC.reshape(-1)])
@@ -191,16 +211,49 @@ class GPRF:
         return float(flat[0]), flat[1:1 + nX].reshape(gX.shape), flat[1 + nX:].reshape(gC.shape)
 
     def llgrad(self, grad_X: bool = False, grad_cov: bool = False, local: bool = True,
-               parallel: bool = False, sparse: bool = False, **_ignored):
+               parallel: bool = False, sparse: bool = False, max_distance: float = 5.0,
+               **_ignored):
         """(ll, gradX, gradCov), as a float and float64 arrays.
         ``local=False`` uses the fully connected pairwise objective (all
         block pairs); ``parallel`` is accepted and ignored, the blocks are
-        always batched."""
+        always batched.  ``sparse`` takes the host's truncated-support path
+        (:meth:`_llgrad_sparse`, the kernel cut at ``max_distance`` scaled
+        lengthscales)."""
         if sparse:
-            raise NotImplementedError("the truncated-support sparse llgrad is not ported yet "
-                                      "(ROADMAP, still to port: sparse/)")
+            return self._llgrad_sparse(grad_X, grad_cov, local, max_distance=max_distance)
         arrays = self._device_arrays() if local else self._all_pairs_device_arrays()
         return self._value_and_grad(self.X, self._Y_dev, arrays, grad_X, grad_cov)
+
+    def _llgrad_sparse(self, grad_X, grad_cov, local, max_distance=5.0):
+        """The truncated-support sparse objective: a host loop over the
+        unary terms (weight 1 - count) and the pair terms, each through
+        :func:`~gprf_torch.model.sparse_llgrad.gaussian_llgrad_sparse`
+        (float64, the native sparse Cholesky and the selected inverse).
+        ``local=False``: all block pairs."""
+        if self.kernelized:
+            raise ValueError("the sparse llgrad reads Y; a kernelized model holds only YY")
+        if local:
+            neighbors, counts = self.neighbors, self.neighbor_count
+        else:
+            B = self.n_blocks
+            neighbors = [(i, j) for i in range(B) for j in range(i)]
+            counts = {i: B - 1 for i in range(B)}
+        blocks = self.layout.block_idxs()
+        ll = 0.0
+        gradX = np.zeros(self.X.shape)
+        gradC = np.zeros((1, 2 + self.cov.dfn_params.numel()))
+        terms = [(1 - counts.get(b, 0), idxs) for b, idxs in enumerate(blocks)]
+        terms += [(1, np.concatenate([blocks[i], blocks[j]])) for i, j in neighbors]
+        for w, idxs in terms:
+            tll, tgX, tgC = gaussian_llgrad_sparse(
+                self.X[idxs], self.Y[idxs], self.cov, self.noise_var, grad_X=grad_X,
+                grad_cov=grad_cov, max_distance=max_distance)
+            ll += w * tll
+            if grad_X:
+                gradX[idxs] += w * tgX
+            if grad_cov:
+                gradC[0] += w * tgC
+        return float(ll), gradX, gradC
 
     def _unary_chunk_for(self, arrays):
         if self._unary_chunk is not None:

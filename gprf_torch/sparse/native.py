@@ -1,10 +1,12 @@
-"""ctypes bindings of the repository's native host library,
-``csrc/gprf_native.cpp`` (the port's own binding of the library that
-``gprf_tpu/sparse/native.py`` binds; the C++ source is shared, not copied).
+"""ctypes bindings of the native host library ``gprf_torch/csrc/gprf_native.cpp``
+(the port's own byte-equal copy of the C++ source that
+``gprf_tpu/sparse/native.py`` binds; a test holds the two files equal).
 
     range_pairs    kd-tree fixed-radius pair enumeration
     rcm_order      reverse Cuthill-McKee fill-reducing ordering
-    NativeCholesky sparse Cholesky factor and its L-multiply (the prior draw)
+    NativeCholesky sparse Cholesky factor: log-determinant, solve,
+                   L-multiply (the prior draw), the factor itself and the
+                   Takahashi selected inverse (the sparse llgrad)
 
 The library is compiled with ``g++`` at first use into
 ``gprf_torch/csrc/build/native-<hash>/``, keyed on a hash of the source and
@@ -23,9 +25,11 @@ import threading
 from pathlib import Path
 
 import numpy as np
+import scipy.sparse
+import scipy.sparse.csgraph
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "gprf_native.cpp"
-BUILD_ROOT = Path(__file__).resolve().parents[1] / "csrc" / "build"
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "gprf_native.cpp"
+BUILD_ROOT = SOURCE.parent / "build"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-shared")
 
 _lock = threading.Lock()
@@ -40,6 +44,11 @@ SIGNATURES = {
                                      _I32, _I32, ctypes.c_int64)),
     "rcm_order": (None, (ctypes.c_int, _I64, _I32, _I32)),
     "sparse_chol_factor": (ctypes.c_void_p, (ctypes.c_int, _I64, _I32, _D)),
+    "sparse_chol_logdet": (ctypes.c_double, (ctypes.c_void_p,)),
+    "sparse_chol_nnz": (ctypes.c_int64, (ctypes.c_void_p,)),
+    "sparse_chol_export": (None, (ctypes.c_void_p, _I64, _I32, _D)),
+    "sparse_chol_solve": (None, (ctypes.c_void_p, _D, ctypes.c_int)),
+    "sparse_chol_selected_inv": (None, (ctypes.c_void_p, _D)),
     "sparse_chol_lmult": (None, (ctypes.c_void_p, _D, ctypes.c_int)),
     "sparse_chol_free": (None, (ctypes.c_void_p,)),
 }
@@ -104,9 +113,53 @@ def range_pairs(pts: np.ndarray, radius: float):
     return rows, cols
 
 
+def _rcm_connected(n, colptr, rowidx):
+    lib = load_library()
+    colptr = np.ascontiguousarray(colptr, dtype=np.int64)
+    rowidx = np.ascontiguousarray(rowidx, dtype=np.int32)
+    perm = np.empty(n, dtype=np.int32)
+    lib.rcm_order(n, _i64ptr(colptr), _i32ptr(rowidx), _i32ptr(perm))
+    return perm
+
+
 def rcm_order(n: int, colptr: np.ndarray, rowidx: np.ndarray) -> np.ndarray:
     """Reverse Cuthill-McKee permutation of a symmetric pattern (both
-    triangles): perm[k] is the old index placed at new position k."""
+    triangles): perm[k] is the old index placed at new position k.
+
+    The native routine seeds each breadth-first sweep at the first node of
+    least degree among the unvisited ones at or past the first unvisited
+    node s, and then goes on past s.  Where that seed lies in another
+    connected component than s, s is never visited and the routine reads
+    past its order (a truncated kernel's pattern falls apart when the
+    support radius is short against the points' spread).  Where that never
+    happens, which is when the components ordered by (least degree, its
+    first node) come in the order of their first nodes, the native order is
+    taken whole, the one ``gprf_tpu`` computes.  Otherwise each component
+    is ordered by the routine alone and the components are laid out as the
+    sweeps would visit them."""
+    colptr = np.asarray(colptr)
+    pattern = scipy.sparse.csc_matrix((np.ones(len(rowidx), dtype=np.int8), rowidx, colptr),
+                                      shape=(n, n))
+    ncomp, labels = scipy.sparse.csgraph.connected_components(pattern, directed=False)
+    if ncomp > 1:
+        degree = np.diff(colptr)
+        by_degree = np.lexsort((np.arange(n), degree))  # least degree, then first node
+        seed_order = labels[by_degree][np.sort(np.unique(labels[by_degree],
+                                                          return_index=True)[1])]
+        first_order = labels[np.sort(np.unique(labels, return_index=True)[1])]
+        if not np.array_equal(seed_order, first_order):
+            parts = []
+            for c in seed_order[::-1]:  # the order is reversed as a whole
+                nodes = np.flatnonzero(labels == c)
+                sub = pattern[nodes][:, nodes].tocsc()
+                sub.sort_indices()
+                parts.append(nodes[_rcm_connected(len(nodes), sub.indptr, sub.indices)])
+            return np.concatenate(parts).astype(np.int32)
+    return _rcm_connected(n, colptr, rowidx)
+
+
+def _rcm_connected(n, colptr, rowidx):
+    """The native routine (:func:`rcm_order` says where it is right)."""
     lib = load_library()
     colptr = np.ascontiguousarray(colptr, dtype=np.int64)
     rowidx = np.ascontiguousarray(rowidx, dtype=np.int32)
@@ -117,7 +170,7 @@ def rcm_order(n: int, colptr: np.ndarray, rowidx: np.ndarray) -> np.ndarray:
 
 class NativeCholesky:
     """Sparse Cholesky L L^T = A of an SPD matrix given as its CSC lower
-    triangle."""
+    triangle.  The handle is freed once, by the process that made it."""
 
     def __init__(self, n, Ap, Ai, Ax):
         lib = load_library()
@@ -126,20 +179,58 @@ class NativeCholesky:
         Ax = np.ascontiguousarray(Ax, dtype=np.float64)
         self._lib = lib
         self.n = n
+        self._pid = os.getpid()
         self._h = lib.sparse_chol_factor(n, _i64ptr(Ap), _i32ptr(Ai), _dptr(Ax))
         if not self._h:
             raise np.linalg.LinAlgError("sparse matrix not positive definite")
 
+    def logdet(self) -> float:
+        return float(self._lib.sparse_chol_logdet(self._h))
+
+    def nnz(self) -> int:
+        return int(self._lib.sparse_chol_nnz(self._h))
+
+    def _columns(self, b, routine):
+        """``routine`` on a copy of b [n] or [n, k], in place on each
+        right-hand side, each contiguous (the C layout)."""
+        b = np.asarray(b, dtype=np.float64)
+        B = np.array(b.reshape(self.n, -1).T, order="C")
+        routine(self._h, _dptr(B), B.shape[0])
+        return B.T[:, 0] if b.ndim == 1 else B.T
+
+    def solve(self, b: np.ndarray) -> np.ndarray:
+        """A^-1 b for b of shape [n] or [n, k]."""
+        return self._columns(b, self._lib.sparse_chol_solve)
+
     def lmult(self, z: np.ndarray) -> np.ndarray:
-        """L z for z of shape [n] or [n, k] (a prior draw from iid z); the C
-        routine works in place on each right-hand side, contiguous."""
-        z = np.asarray(z, dtype=np.float64)
-        Z = np.ascontiguousarray(z.reshape(self.n, -1).T)
-        self._lib.sparse_chol_lmult(self._h, _dptr(Z), Z.shape[0])
-        return Z.T[:, 0] if z.ndim == 1 else Z.T
+        """L z for z of shape [n] or [n, k] (a prior draw from iid z)."""
+        return self._columns(z, self._lib.sparse_chol_lmult)
+
+    def _export(self, values=None):
+        """The factor's CSC pattern with the factor's values, or with
+        ``values`` aligned to it."""
+        nnz = self.nnz()
+        Lp = np.empty(self.n + 1, dtype=np.int64)
+        Li = np.empty(nnz, dtype=np.int32)
+        Lx = np.empty(nnz, dtype=np.float64)
+        self._lib.sparse_chol_export(self._h, _i64ptr(Lp), _i32ptr(Li), _dptr(Lx))
+        return scipy.sparse.csc_matrix((Lx if values is None else values, Li, Lp),
+                                       shape=(self.n, self.n))
+
+    def selected_inverse_lower(self):
+        """The entries of A^-1 on the lower-triangular pattern of L
+        (Takahashi's recurrences), as a scipy CSC matrix aligned with the
+        factor."""
+        Zx = np.empty(self.nnz(), dtype=np.float64)
+        self._lib.sparse_chol_selected_inv(self._h, _dptr(Zx))
+        return self._export(Zx)
+
+    def L(self):
+        """The factor as a scipy CSC matrix."""
+        return self._export()
 
     def __del__(self):
         h = getattr(self, "_h", None)
-        if h:
+        if h and self._pid == os.getpid():
             self._lib.sparse_chol_free(h)
-            self._h = None
+        self._h = None

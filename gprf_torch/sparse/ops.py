@@ -1,6 +1,5 @@
-"""Sparse kernel matrices and the prior draws for large n (mirror of
-``sparse_kernel_matrix``, ``SparseFactor``, ``sample_y_sparse`` and
-``sample_y_banded`` in ``gprf_tpu/sparse/ops.py``).
+"""Sparse kernel matrices, their factor and the prior draws for large n
+(mirror of ``gprf_tpu/sparse/ops.py``).
 
 The kernel's support is truncated at ``max_scaled_dist`` scaled
 lengthscales; the surviving pattern comes from the native kd-tree range
@@ -102,9 +101,10 @@ def sparse_kernel_matrix(X, cov: GPCov, max_scaled_dist=4.0, noise_var=0.0):
 
 
 class SparseFactor:
-    """RCM-permuted sparse Cholesky of an SPD scipy matrix and the prior
-    draw ``lmult_prior_sample`` (the solve, log-determinant and selected
-    inverse of the reference's class serve its sparse llgrad, not ported)."""
+    """RCM-permuted sparse Cholesky of an SPD scipy matrix: the solve, the
+    log-determinant, the permuted factor ``L`` and permutation ``P``, the
+    selected inverse (the sparse llgrad) and the prior draw
+    ``lmult_prior_sample``."""
 
     def __init__(self, K_csc):
         K = K_csc.tocsc()
@@ -117,9 +117,32 @@ class SparseFactor:
         self._chol = NativeCholesky(n, lower.indptr.astype(np.int64),
                                     lower.indices.astype(np.int32), lower.data)
 
+    def logdet(self) -> float:
+        return self._chol.logdet()
+
+    def solve(self, b):
+        """K^-1 b for b [n] or [n, k], in the original order."""
+        return self._chol.solve(np.asarray(b, dtype=np.float64)[self.perm])[self.iperm]
+
     def lmult_prior_sample(self, z):
         """P^T L z: a draw from N(0, K) given iid normal z."""
         return self._chol.lmult(np.asarray(z, dtype=np.float64))[self.iperm]
+
+    def L(self):
+        """The factor of the permuted matrix, scipy CSC."""
+        return self._chol.L()
+
+    def selected_inverse(self):
+        """K^-1 on the factor's pattern (a superset of K's), symmetric, in
+        the original order, as scipy CSR: exact on every entry that the
+        sparse gradient's elementwise products read."""
+        Zl = self._chol.selected_inverse_lower()  # the permuted lower pattern
+        Zsym = Zl + Zl.T - scipy.sparse.diags(Zl.diagonal())
+        return Zsym[self.iperm][:, self.iperm].tocsr()
+
+    def P(self):
+        """The permutation: row k of the factor is row ``P()[k]`` of K."""
+        return self.perm
 
 
 def sample_y_sparse(X, cov: GPCov, noise_var, yd, max_scaled_dist=4.0, *, rng):

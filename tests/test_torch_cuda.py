@@ -1316,3 +1316,80 @@ def test_gplvm_baselines_on_the_card(dev, tmp_path, monkeypatch, gplvm_type):
     g32 = torch.cat([g.reshape(-1).double().cpu() for g in got[torch.float32][1:]])
     g64 = torch.cat([g.reshape(-1) for g in got[torch.float64][1:]])
     assert float(g32 @ g64 / (g32.norm() * g64.norm())) > 0.999
+
+
+# ---- the kernelized and sparse llgrads on the card ----------------------------------
+
+
+def _kernelized(s, dev, dtype, ops):
+    """The kernelized model over s's partition, YY = SY SY^T formed on the card."""
+    from gprf_torch.model.gprf import GPRF
+
+    SY = torch.as_tensor(s.SY, dtype=torch.float64, device=dev)
+    base = s.build_gprf(local_dist=0.1, device="cpu", dtype=torch.float64)
+    return GPRF(s.X_obs, (SY @ SY.T).to(dtype), s.reblock, s.cov, s.noise_var, kernelized=True,
+                dy=s.SY.shape[1], block_idxs=base.block_idxs, neighbors=base.neighbors,
+                device=dev, dtype=dtype, ops=ops)
+
+
+@pytest.mark.parametrize("moved", [False, True])
+@pytest.mark.parametrize("local", [True, False])
+def test_kernelized_llgrad_on_card_runs_k1_alone(dev, sampled, local, moved):
+    """The kernelized objective in float32 on the kernels against the twins,
+    at m = 88 (pairs at 176, one K1 leaf) and after the move to m = 240
+    (pairs at 480, split into K1 leaves of 240); it launches K1 and no other
+    kernel, and in float64 (LINALG_OPS) it is the Schur form on Y."""
+    kernels, twins, exact = (_kernelized(sampled, dev, dtype, ops) for dtype, ops in (
+        (torch.float32, mvn.KERNEL_OPS), (torch.float32, mvn.PLAIN_OPS),
+        (torch.float64, mvn.LINALG_OPS)))
+    schur = sampled.build_gprf(local_dist=0.1, device=dev, dtype=torch.float64,
+                               ops=mvn.LINALG_OPS)
+    models = (kernels, twins, exact, schur)
+    if moved:
+        for g in models:
+            g.update_X(_a_third_into_one_corner(sampled.X_obs))
+    assert kernels.layout.block_pad == (240 if moved else 88)
+    mvn.reset_launch_counts()
+    a = kernels.llgrad(grad_X=True, grad_cov=True, local=local)
+    assert mvn.launch_counts["chol_inv"] == (3 if moved else 2)
+    assert sum(mvn.launch_counts.values()) == mvn.launch_counts["chol_inv"]
+    _agree(a, twins.llgrad(grad_X=True, grad_cov=True, local=local))
+    k, y = (g.llgrad(grad_X=True, grad_cov=True, local=local) for g in (exact, schur))
+    assert abs(k[0] - y[0]) <= 1e-9 * abs(y[0])
+    np.testing.assert_allclose(k[1], y[1], rtol=1e-6, atol=1e-6 * np.abs(y[1]).max())
+
+
+def test_sparse_llgrad_of_a_card_model_runs_on_the_host(dev, sampled):
+    """llgrad(sparse=True) of a model on the card is the float64 host
+    computation, the same as a CPU model's, and launches no kernel."""
+    on_card, on_cpu = (sampled.build_gprf(local_dist=0.1, device=d, dtype=torch.float64,
+                                          ops=mvn.LINALG_OPS) for d in (dev, "cpu"))
+    mvn.reset_launch_counts()
+    a = on_card.llgrad(grad_X=True, grad_cov=True, sparse=True)
+    assert sum(mvn.launch_counts.values()) == 0
+    b = on_cpu.llgrad(grad_X=True, grad_cov=True, sparse=True)
+    assert a[0] == b[0]
+    np.testing.assert_array_equal(a[1], b[1])
+    dense = on_card.llgrad(grad_X=True, grad_cov=True)
+    assert abs(a[0] - dense[0]) <= 1e-6 * abs(dense[0])
+
+
+def test_seismic_sparse_runs_on_the_host_engine_of_the_card(dev, tmp_path, monkeypatch):
+    from gprf_torch.cli import run_seismic
+    from gprf_torch.data.seismic import make_synthetic_catalog
+
+    monkeypatch.setenv("SEISMIC_EXPERIMENTS", str(tmp_path / "exp"))
+    data = tmp_path / "data"
+    data.mkdir()
+    np.save(data / "sorted_isc.npy", make_synthetic_catalog(n=800, seed=2))
+    argv = ["--npts=400", "--obs_std=20", "--threshold=0.6", "--rpc_blocksize=210",
+            "--task=xcov", "--data_dir", str(data), "--sparse"]
+    with pytest.raises(ValueError, match="--engine host"):
+        run_seismic.main(argv + ["--engine", "device"])
+    assert not os.path.exists(tmp_path / "exp")
+    run_seismic.main(argv + ["--engine", "host", "--maxsec", "5"])
+    d = run_seismic.seismic_exp_dir(run_seismic.build_parser().parse_args(argv))
+    assert {"log.txt", "covs.txt", "results.txt", "finished"} <= set(os.listdir(d))
+    with open(os.path.join(d, "log.txt")) as f:
+        values = [float(line.split()[2]) for line in f if line[0].isdigit()]
+    assert len(values) >= 3 and max(values) > values[0]

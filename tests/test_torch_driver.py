@@ -141,16 +141,23 @@ def test_cov_row_helpers_match_jax():
         tdriver._full_cov(np.ones((1, 2)), None, 2, 0.01)
 
 
-def test_unported_drivers_raise(tmp_path, data):
-    # the seismic and multistart drivers and the float64 refinement are ported
-    # (tests/test_torch_seismic.py, tests/test_torch_multistart.py,
-    # tests/test_torch_refine.py); what a driver still refuses is the sparse llgrad
-    t, _ = data
-    gprf = t.build_gprf(local_dist=0.1, **F64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdriver.do_optimization_seismic(str(tmp_path), gprf, None,
-                                        np.array([[0.01, 1.0, 0.15, 0.15]]),
-                                        lambda c: (0.0, np.zeros_like(c)), None, sparse=True)
+def test_unported_drivers_raise(tmp_path, data, few_scipy_iterations):
+    """No driver refuses anything any more: the seismic and multistart
+    drivers and the float64 refinement are ported
+    (tests/test_torch_seismic.py, tests/test_torch_multistart.py,
+    tests/test_torch_refine.py), and the seismic driver's sparse llgrad,
+    which it refused until the sparse path was ported, runs: its log
+    against the reference's (task cov)."""
+    t, j = data
+    dt, dj = _dirs(tmp_path)
+    C0 = np.array([[0.01, 1.0, 0.15, 0.15]])
+    for d, g in ((dt, t.build_gprf(local_dist=0.1, **F64)), (dj, j.build_gprf(local_dist=0.1))):
+        driver = tdriver if d == dt else jdriver
+        driver.do_optimization_seismic(d, g, None, C0, lambda c: (0.0, np.zeros_like(c)), None,
+                                       maxsec=60, sparse=True)
+    (ts, tv), (js, jv) = _log(dt), _log(dj)
+    assert len(ts) >= 3 and list(ts) == list(js)
+    np.testing.assert_allclose(tv, jv, rtol=RTOL, atol=LOG_ATOL)
     assert callable(tlbfgs.refine_f64)
 
 

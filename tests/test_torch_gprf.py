@@ -181,20 +181,27 @@ def test_the_models_leaves_are_an_option(data):
     _close(a[2], b[2], rtol=1e-9)
 
 
-@pytest.mark.parametrize("option", [dict(kernelized=True, dy=4), dict(form="dense"),
+@pytest.mark.parametrize("option", [dict(kernelized=True), dict(form="dense"),
                                     dict(mesh=object()), dict(nonstationary=True)])
 def test_unported_model_options_raise(data, option):
-    """Options the port does not serve raise; an unknown form is refused as
-    a wrong value (the joint form is served: tests/test_torch_joint.py)."""
+    """Options the port does not serve raise; an unknown form, and the
+    kernelized model without its dy, are refused as wrong values (the joint
+    form is served: tests/test_torch_joint.py; the kernelized model:
+    tests/test_torch_kernelized.py)."""
     t, _ = data
-    with pytest.raises(ValueError if "form" in option else NotImplementedError):
+    with pytest.raises(ValueError if {"form", "kernelized"} & set(option)
+                       else NotImplementedError):
         TGPRF(t.X_obs, t.SY, t.reblock, t.cov, 0.01, block_idxs=t.block_idxs, neighbors=[],
               **option, **F64)
 
 
 def test_unported_model_methods_raise(data):
-    tg, _ = _pair(data)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """llgrad(sparse=True) runs (tests/test_torch_sparse.py), but not on a
+    kernelized model, which holds YY and no Y."""
+    t, _ = data
+    tg = TGPRF(t.X_obs, t.SY @ t.SY.T, t.reblock, t.cov, 0.01, kernelized=True, dy=4,
+               block_idxs=t.block_idxs, neighbors=[], **F64)
+    with pytest.raises(ValueError, match="YY"):
         tg.llgrad(sparse=True)
 
 

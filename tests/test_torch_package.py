@@ -29,7 +29,10 @@ def test_the_import_check_covers_the_entry_points():
             "gprf_torch.data.synthetic", "gprf_torch.analysis.results",
             "gprf_torch.model.gprf", "gprf_torch.optim.driver",
             "gprf_torch.partition.layout", "gprf_torch.cli.run_seismic",
-            "gprf_torch.sparse.native", "gprf_torch.model.fused_seismic"} <= set(_modules())
+            "gprf_torch.sparse.native", "gprf_torch.model.fused_seismic",
+            "gprf_torch.model.kernelized", "gprf_torch.model.sparse_llgrad",
+            "gprf_torch.cli.analyze", "gprf_torch.utils.profiling",
+            "gprf_torch.data.pipeline.catalog"} <= set(_modules())
 
 
 def test_imports_without_jax_optax_or_gprf_tpu():

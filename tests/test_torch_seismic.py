@@ -539,10 +539,11 @@ def test_run_seismic_host_engine_matches_jax(seismic_exp, monkeypatch, few_scipy
 
 def test_run_seismic_refuses_what_is_not_ported_and_wants_a_gpu(seismic_exp):
     base, data = seismic_exp
-    # --refine_iters runs (test_run_seismic_refine_matches_jax); --sparse is refused
-    for extra in (["--sparse"], ["--engine", "host", "--sparse"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcli.main(ARGV + data + extra + ["--device", "cpu"])
+    # --refine_iters runs (test_run_seismic_refine_matches_jax) and --sparse
+    # on the host engine (tests/test_torch_sparse.py); the device engine has
+    # no sparse path and refuses --sparse before anything runs
+    with pytest.raises(ValueError, match="--engine host"):
+        tcli.main(ARGV + data + ["--engine", "device", "--sparse", "--device", "cpu"])
     assert not os.path.exists(base / "exp")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
