@@ -38,6 +38,7 @@ from gprf_torch.kernels.gpcov import GPCov
 from gprf_torch.model.objective import GPRFParams, _value_and_grad, gprf_ll, gprf_ll_schur
 from gprf_torch.ops.mvn import KERNEL_OPS, Ops
 from gprf_torch.partition.rpc_device import FlatRPCTree, assign_blocks_rpc
+from gprf_torch.utils.profiling import span
 
 
 def assemble_layout(blocks, B: int, m: int):
@@ -167,52 +168,53 @@ class FusedSyntheticGPRF:
                  device: torch.device | str, dtype: torch.dtype, acc_dtype=None,
                  ops: Ops = KERNEL_OPS, mvn_inv: bool = False, unary_doubling: bool = False,
                  pair_chunk: int | None = None):
-        if task not in ("x", "cov", "xcov"):
-            raise ValueError(f"unknown task {task!r}")
-        if (centers is None) == (rpc_tree is None):
-            raise ValueError("exactly one of centers / rpc_tree selects the partition")
-        self.task = task
-        self.device = torch.device(device)
-        self.dtype = dtype
-        self.acc_dtype = acc_dtype
-        self.ops = ops
-        self.mvn_inv = mvn_inv
-        self.unary_doubling = unary_doubling
-        self.pair_chunk = pair_chunk
-        self.Y = torch.tensor(np.asarray(Y), dtype=dtype, device=device)
-        self.X0 = np.asarray(X0, dtype=np.float64)
-        self.shape = self.X0.shape
-        if centers is not None:
-            self.kind = "grid"
-            self.centers = torch.tensor(np.asarray(centers), dtype=dtype, device=device)
-            B = len(centers)
-        else:
-            self.kind = "rpc"
-            self.centers = None
-            self._rpc = FlatRPCTree(rpc_tree, d=self.shape[1])
-            self.rpc_arrays = self._rpc.device_arrays(device=device, dtype=dtype)
-            B = self._rpc.n_blocks
-        self.n_blocks = B
+        with span("build"):
+            if task not in ("x", "cov", "xcov"):
+                raise ValueError(f"unknown task {task!r}")
+            if (centers is None) == (rpc_tree is None):
+                raise ValueError("exactly one of centers / rpc_tree selects the partition")
+            self.task = task
+            self.device = torch.device(device)
+            self.dtype = dtype
+            self.acc_dtype = acc_dtype
+            self.ops = ops
+            self.mvn_inv = mvn_inv
+            self.unary_doubling = unary_doubling
+            self.pair_chunk = pair_chunk
+            self.Y = torch.tensor(np.asarray(Y), dtype=dtype, device=device)
+            self.X0 = np.asarray(X0, dtype=np.float64)
+            self.shape = self.X0.shape
+            if centers is not None:
+                self.kind = "grid"
+                self.centers = torch.tensor(np.asarray(centers), dtype=dtype, device=device)
+                B = len(centers)
+            else:
+                self.kind = "rpc"
+                self.centers = None
+                self._rpc = FlatRPCTree(rpc_tree, d=self.shape[1])
+                self.rpc_arrays = self._rpc.device_arrays(device=device, dtype=dtype)
+                B = self._rpc.n_blocks
+            self.n_blocks = B
 
-        edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
-        self.edges = torch.as_tensor(edges, device=device)
-        counts = np.zeros(B, dtype=np.int64)
-        np.add.at(counts, edges.reshape(-1), 1)
-        self.unary_weights = torch.as_tensor(1.0 - counts, dtype=dtype, device=device)
-        self.pair_weights = torch.ones(len(edges), dtype=dtype, device=device)
-        self.X_obs_flat = torch.tensor(np.asarray(X_obs).reshape(-1), dtype=dtype,
-                                       device=device)
-        self.obs_std = float(obs_std)
-        self.cov = cov.to(device=device, dtype=dtype)
-        self.noise_var = float(noise_var)
-        self.C0 = None if C0 is None else np.asarray(C0, dtype=np.float64).reshape(1, -1)
-        if task in ("cov", "xcov") and (self.C0 is None or self.C0.shape[1] not in (1, 4)):
-            raise ValueError("tasks cov/xcov need C0 with 1 or 4 parameters")
+            edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+            self.edges = torch.as_tensor(edges, device=device)
+            counts = np.zeros(B, dtype=np.int64)
+            np.add.at(counts, edges.reshape(-1), 1)
+            self.unary_weights = torch.as_tensor(1.0 - counts, dtype=dtype, device=device)
+            self.pair_weights = torch.ones(len(edges), dtype=dtype, device=device)
+            self.X_obs_flat = torch.tensor(np.asarray(X_obs).reshape(-1), dtype=dtype,
+                                           device=device)
+            self.obs_std = float(obs_std)
+            self.cov = cov.to(device=device, dtype=dtype)
+            self.noise_var = float(noise_var)
+            self.C0 = None if C0 is None else np.asarray(C0, dtype=np.float64).reshape(1, -1)
+            if task in ("cov", "xcov") and (self.C0 is None or self.C0.shape[1] not in (1, 4)):
+                raise ValueError("tasks cov/xcov need C0 with 1 or 4 parameters")
 
-        if m is None:
-            sizes = np.bincount(self._assign_host(self.X0), minlength=B)
-            m = (int(sizes.max()) + 7) // 8 * 8
-        self.m = m
+            if m is None:
+                sizes = np.bincount(self._assign_host(self.X0), minlength=B)
+                m = (int(sizes.max()) + 7) // 8 * 8
+            self.m = m
 
     # ---- partition ---------------------------------------------------------
 
@@ -341,21 +343,23 @@ class FusedSyntheticGPRF:
                 sv = base_cov.wfn_params.expand(R, 1)
                 ls = base_cov.dfn_params.expand(R, -1)
 
-            assignment, mask, overflow = stacked_layout(self._assign_device(X.detach()), B, m)
+            with span("reblock"):
+                assignment, mask, overflow = stacked_layout(self._assign_device(X.detach()), B, m)
             params = GPRFParams(X=X, wfn_params=sv, dfn_params=ls, noise_var=nv)
             ll = gprf_ll_schur(
                 params, self.Y, assignment, mask, self.edges, self.unary_weights,
                 self.pair_weights, dfn_str=base_cov.dfn_str, wfn_str=base_cov.wfn_str,
                 acc_dtype=acc_dtype, ops=ops, **routes,
             )
-            if task in ("x", "xcov"):
-                r = (X.reshape(R, -1) - self.X_obs_flat) / obs_std
-                ll = ll - 0.5 * torch.sum(r * r, dim=-1) - 0.5 * nflat * math.log(
-                    2 * math.pi * obs_std**2)
-            if task in ("cov", "xcov"):
-                rc = (c + 1.0) / 10.0
-                ll = ll - 0.5 * torch.sum(rc * rc, dim=-1) - 0.5 * c.shape[-1] * math.log(
-                    2 * math.pi * 100.0)
+            with span("prior"):
+                if task in ("x", "xcov"):
+                    r = (X.reshape(R, -1) - self.X_obs_flat) / obs_std
+                    ll = ll - 0.5 * torch.sum(r * r, dim=-1) - 0.5 * nflat * math.log(
+                        2 * math.pi * obs_std**2)
+                if task in ("cov", "xcov"):
+                    rc = (c + 1.0) / 10.0
+                    ll = ll - 0.5 * torch.sum(rc * rc, dim=-1) - 0.5 * c.shape[-1] * math.log(
+                        2 * math.pi * 100.0)
             shape = theta.shape[:-1]
             return (-ll).reshape(shape), overflow.reshape(shape)
 

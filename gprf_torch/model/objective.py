@@ -60,6 +60,7 @@ from gprf_torch.linalg.doubling import batched_tri_inv_doubling
 from gprf_torch.linalg.masked import masked_gaussian_ll, pad_kernel_matrix
 from gprf_torch.ops.mvn import KERNEL_OPS, Ops
 from gprf_torch.ops.split_mvn import chol_inv_split, cholesky_split, mvn_ll_split
+from gprf_torch.utils.profiling import span
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -137,50 +138,53 @@ def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
     noise_var = noise_var.reshape(R, 1, 1, 1)
 
     # ---- unary pass: K1 over every block (K5 + doubling on that route)
-    # index_select, not X[assignment]: its backward is an index_add, where
-    # advanced indexing's is a sort-based index_put that took ~0.6 ms of a
-    # flagship evaluation on the H100 (it sums in another order, so the X
-    # gradient on the card varies in the last bits from run to run)
-    n = X.shape[1]
-    flat = assignment.long()
-    if R > 1:  # replica r's points sit at rows r n .. r n + n - 1 of the flat X
-        flat = flat + torch.arange(R, device=X.device).reshape(R, 1, 1) * n
-    Xb = X.reshape(R * n, -1).index_select(0, flat.reshape(-1)).reshape(R, B, m, X.shape[-1])
-    Kp = pad_kernel_matrix(cross_kernel_matrix(cov, Xb, Xb) + noise_var * eye, mask)
-    Ym = Y[assignment.long()] * maskf[..., None]
-    if unary_doubling:
-        Ls = cholesky_split(Kp.reshape(R * B, m, m), ops=ops)
-        Ws = batched_tri_inv_doubling(Ls)
-    else:
-        Ls, Ws = chol_inv_split(Kp.reshape(R * B, m, m), ops=ops)
-    Ls, Ws = Ls.reshape(R, B, m, m), Ws.reshape(R, B, m, m)
-    Zs = Ws @ Ym
-    quads = torch.sum((Zs * Zs).to(acc), dim=(-2, -1))
-    logdets = 2.0 * torch.sum(torch.log(torch.diagonal(Ls, dim1=-2, dim2=-1)).to(acc), dim=-1)
-    nbs = torch.sum(maskf.to(acc), dim=-1)
-    unary_ll = -0.5 * quads - 0.5 * dy * logdets - 0.5 * dy * nbs * _LOG_2PI  # [R, B]
-    total = torch.sum(unary_weights.to(acc) * unary_ll, dim=-1)
+    with span("unary_pass"):
+        # index_select, not X[assignment]: its backward is an index_add, where
+        # advanced indexing's is a sort-based index_put that took ~0.6 ms of a
+        # flagship evaluation on the H100 (it sums in another order, so the X
+        # gradient on the card varies in the last bits from run to run)
+        n = X.shape[1]
+        flat = assignment.long()
+        if R > 1:  # replica r's points sit at rows r n .. r n + n - 1 of the flat X
+            flat = flat + torch.arange(R, device=X.device).reshape(R, 1, 1) * n
+        Xb = X.reshape(R * n, -1).index_select(0, flat.reshape(-1)).reshape(R, B, m, X.shape[-1])
+        Kp = pad_kernel_matrix(cross_kernel_matrix(cov, Xb, Xb) + noise_var * eye, mask)
+        Ym = Y[assignment.long()] * maskf[..., None]
+        if unary_doubling:
+            Ls = cholesky_split(Kp.reshape(R * B, m, m), ops=ops)
+            Ws = batched_tri_inv_doubling(Ls)
+        else:
+            Ls, Ws = chol_inv_split(Kp.reshape(R * B, m, m), ops=ops)
+        Ls, Ws = Ls.reshape(R, B, m, m), Ws.reshape(R, B, m, m)
+        Zs = Ws @ Ym
+        quads = torch.sum((Zs * Zs).to(acc), dim=(-2, -1))
+        logdets = 2.0 * torch.sum(torch.log(torch.diagonal(Ls, dim1=-2, dim2=-1)).to(acc), dim=-1)
+        nbs = torch.sum(maskf.to(acc), dim=-1)
+        unary_ll = -0.5 * quads - 0.5 * dy * logdets - 0.5 * dy * nbs * _LOG_2PI  # [R, B]
+        total = torch.sum(unary_weights.to(acc) * unary_ll, dim=-1)
     E = edges.shape[0]
     if E == 0:
         return total
 
     # ---- pair pass: K2 (or K4) over every Schur complement against the i-side factor
     def pair_sum(edges_c, pw_c):
-        ei = edges_c[:, 0]
-        ej = edges_c[:, 1]
-        Ec = edges_c.shape[0]
-        Kij = cross_kernel_matrix(cov, Xb[:, ei], Xb[:, ej])
-        Kij = Kij * (maskf[:, ei][..., :, None] * maskf[:, ej][..., None, :])
-        Bm = Ws[:, ei] @ Kij
-        # padded rows of Kp[ej] are identity and the matching Bm columns are
-        # zero, so S stays padded-masked
-        S = Kp[:, ej] - Bm.mT @ Bm
-        rhs = Ym[:, ej] - Bm.mT @ Zs[:, ei]
-        nbj = torch.sum(maskf[:, ej], dim=-1)
-        pair_mvn = mvn_ll_split(S.reshape(R * Ec, m, m), rhs.reshape(R * Ec, m, dy),
-                                nbj.reshape(R * Ec), ops=ops, mvn_inv=mvn_inv)
-        pair_ll = unary_ll[:, ei] + pair_mvn.reshape(R, Ec).to(acc)
-        return torch.sum(pw_c.to(acc) * pair_ll, dim=-1)
+        # each chunk, and again in the backward where the remat recomputes it
+        with span("pair_pass"):
+            ei = edges_c[:, 0]
+            ej = edges_c[:, 1]
+            Ec = edges_c.shape[0]
+            Kij = cross_kernel_matrix(cov, Xb[:, ei], Xb[:, ej])
+            Kij = Kij * (maskf[:, ei][..., :, None] * maskf[:, ej][..., None, :])
+            Bm = Ws[:, ei] @ Kij
+            # padded rows of Kp[ej] are identity and the matching Bm columns are
+            # zero, so S stays padded-masked
+            S = Kp[:, ej] - Bm.mT @ Bm
+            rhs = Ym[:, ej] - Bm.mT @ Zs[:, ei]
+            nbj = torch.sum(maskf[:, ej], dim=-1)
+            pair_mvn = mvn_ll_split(S.reshape(R * Ec, m, m), rhs.reshape(R * Ec, m, dy),
+                                    nbj.reshape(R * Ec), ops=ops, mvn_inv=mvn_inv)
+            pair_ll = unary_ll[:, ei] + pair_mvn.reshape(R, Ec).to(acc)
+            return torch.sum(pw_c.to(acc) * pair_ll, dim=-1)
 
     edges = edges.long()
     if pair_chunk is None or E <= pair_chunk:

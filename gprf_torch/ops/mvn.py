@@ -36,6 +36,7 @@ import torch
 
 from gprf_torch.linalg.masked import cholesky_nan
 from gprf_torch.ops import _build
+from gprf_torch.utils.profiling import counter_group
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -109,9 +110,11 @@ def mvn_inv_supported(m: int, dy: int) -> bool:
     return dy <= MAX_DY_MVN and m <= mvn_max_m(dy)
 
 
-# Kernel launches per wrapper since the last reset.  Only a launch of the
+# Kernel launches per wrapper since the last reset: the "launches" group of
+# the port's counters (gprf_torch.utils.profiling).  Only a launch of the
 # CUDA kernel counts; the twin never does.
-launch_counts = {"chol_inv": 0, "mvn_ll": 0, "tri_inv": 0, "mvn_ll_inv": 0, "cholesky": 0}
+launch_counts = counter_group("launches", ("chol_inv", "mvn_ll", "tri_inv", "mvn_ll_inv",
+                                           "cholesky"))
 
 
 def reset_launch_counts() -> None:

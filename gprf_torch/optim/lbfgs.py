@@ -18,6 +18,13 @@ together (multistart), each with its own acceptance, curvature memory,
 ``head`` and step scale.  The reference ``vmap``s its runner; here the
 replicas are folded into the loss's own batch, so its kernels launch once
 for all of them.
+
+The runner and the drivers mark their layers with spans of
+:mod:`gprf_torch.utils.profiling` (``fit``, ``init_eval``, ``dispatch``,
+``step``, ``forward``, ``backward``, ``update``, ``overflow_check``,
+``sync``, ``grow``, ``checkpoint``), recorded only while a profiler
+records, and count each fit's evaluations, steps, accepted steps,
+dispatches, host reads, capacity growths and checkpoints.
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ import time
 import numpy as np
 import torch
 
+from gprf_torch.utils import profiling
 from gprf_torch.utils.io import save_step
+from gprf_torch.utils.profiling import fit_counts, span
 
 _F32_EPS = float(torch.finfo(torch.float32).eps)
 
@@ -39,8 +48,10 @@ def value_and_grad(loss_fn, x):
     since the terms are independent."""
     x = x.detach().requires_grad_(True)
     with torch.enable_grad():
-        v = loss_fn(x)
-        (g,) = torch.autograd.grad(v.sum() if v.dim() else v, x)
+        with span("forward"):
+            v = loss_fn(x)
+        with span("backward"):
+            (g,) = torch.autograd.grad(v.sum() if v.dim() else v, x)
     return v.detach(), g
 
 
@@ -66,18 +77,20 @@ def make_scan_lbfgs_runner(loss_fn, num_steps: int, memory_size: int = 10,
     M = memory_size
 
     def init_fn(x0):
-        v0, g0 = value_and_grad(loss_fn, x0)
-        batch, n, dt, dev = x0.shape[:-1], x0.shape[-1], x0.dtype, x0.device
-        return dict(
-            x=x0, v=v0, g=g0, x_prev=x0, v_prev=v0, g_prev=g0,
-            first=torch.ones(batch, dtype=torch.bool, device=dev),
-            eta=torch.ones(batch, dtype=dt, device=dev),
-            S=torch.zeros((*batch, M, n), dtype=dt, device=dev),
-            Ymem=torch.zeros((*batch, M, n), dtype=dt, device=dev),
-            rho=torch.zeros((*batch, M), dtype=dt, device=dev),
-            valid=torch.zeros((*batch, M), dtype=torch.bool, device=dev),
-            head=torch.zeros(batch, dtype=torch.int64, device=dev),
-        )
+        fit_counts["evaluations"] += 1
+        with span("init_eval"):
+            v0, g0 = value_and_grad(loss_fn, x0)
+            batch, n, dt, dev = x0.shape[:-1], x0.shape[-1], x0.dtype, x0.device
+            return dict(
+                x=x0, v=v0, g=g0, x_prev=x0, v_prev=v0, g_prev=g0,
+                first=torch.ones(batch, dtype=torch.bool, device=dev),
+                eta=torch.ones(batch, dtype=dt, device=dev),
+                S=torch.zeros((*batch, M, n), dtype=dt, device=dev),
+                Ymem=torch.zeros((*batch, M, n), dtype=dt, device=dev),
+                rho=torch.zeros((*batch, M), dtype=dt, device=dev),
+                valid=torch.zeros((*batch, M), dtype=torch.bool, device=dev),
+                head=torch.zeros(batch, dtype=torch.int64, device=dev),
+            )
 
     def _two_loop(g, S, Ymem, rho, valid, head):
         # newest-first order of the circular memory
@@ -103,8 +116,9 @@ def make_scan_lbfgs_runner(loss_fn, num_steps: int, memory_size: int = 10,
             r = r + torch.where(use, alphas[i] - beta, 0.0)[..., None] * S[..., i, :]
         return -r  # descent direction
 
-    def step(c):
-        v_new, g_new = value_and_grad(loss_fn, c["x"])
+    def update(c, v_new, g_new):
+        """The step after its evaluation: acceptance, memory fold, two-loop
+        recursion and the next proposal."""
         # nonmonotone slack at float32's resolution of the objective: the
         # block factorizations compute in f32 whatever the accumulator
         slack = 8.0 * _F32_EPS * torch.abs(c["v_prev"])
@@ -143,7 +157,16 @@ def make_scan_lbfgs_runner(loss_fn, num_steps: int, memory_size: int = 10,
         )
         return out, (v_eff, ok, gn)
 
+    def step(c):
+        fit_counts["evaluations"] += 1
+        fit_counts["steps"] += 1
+        with span("step"):
+            v_new, g_new = value_and_grad(loss_fn, c["x"])
+            with span("update"):
+                return update(c, v_new, g_new)
+
     def run_fn(carry):
+        fit_counts["dispatches"] += 1
         traj = []
         for _ in range(num_steps):
             carry, outs = step(carry)
@@ -155,8 +178,9 @@ def make_scan_lbfgs_runner(loss_fn, num_steps: int, memory_size: int = 10,
         def masked(pt):
             return aux_fn(pt) & torch.isfinite(pt).all(dim=-1)
 
-        return carry, (values, accepted, gnorms,
-                       masked(carry["x_prev"]) | masked(carry["x"]))
+        with span("overflow_check"):
+            overflow = masked(carry["x_prev"]) | masked(carry["x"])
+        return carry, (values, accepted, gnorms, overflow)
 
     return init_fn, run_fn
 
@@ -196,9 +220,11 @@ class GrowingRunner:
         """Grow, and restart at ``carry[at]``: the single-start drivers at
         the pending proposal ``x``, the multistart driver at the last
         evaluated point ``x_prev``, as the reference's drivers do."""
-        self.fused.grow_capacity()
-        self._make()
-        return {**self.init_fn(carry[at]), **{k: carry[k] for k in self.KEPT}}
+        fit_counts["capacity_growths"] += 1
+        with span("grow"):
+            self.fused.grow_capacity()
+            self._make()
+            return {**self.init_fn(carry[at]), **{k: carry[k] for k in self.KEPT}}
 
 
 def _truncate_log_rows(path, it0):
@@ -247,6 +273,14 @@ def load_optimizer_state(d, device: torch.device | str):
     return carry, it
 
 
+def _host(t):
+    """``t`` as a numpy array on the host: a read that waits for the card
+    (a ``sync`` span, counted in ``host_syncs``)."""
+    fit_counts["host_syncs"] += 1
+    with span("sync"):
+        return t.cpu().numpy()
+
+
 def _fc_from_tail(fused, tail, ntheta):
     """The host-side cov row from just the packed-cov tail of theta, through
     the evaluator's own ``unpack_host`` on a zero-padded vector (the X
@@ -267,9 +301,11 @@ def do_optimization_fused_theta(d, fused, theta0, maxsec: float = 3600, max_iter
     the optimizer state for ``resume``.
 
     Per dispatch one small tensor crosses to the host: the step values, the
-    overflow flag and, on cov-bearing tasks, the cov tail of the last
-    evaluated point.  theta and the (memory x n) optimizer state cross only
-    on the ``ckpt_every_sec`` cadence and after the last dispatch.
+    steps' acceptance, the overflow flag and, on cov-bearing tasks, the cov
+    tail of the last evaluated point.  theta and the (memory x n) optimizer
+    state cross only on the ``ckpt_every_sec`` cadence and after the last
+    dispatch.  Beside ``finished``, in the same ``finally``, the fit's
+    counters go to ``counters.json`` (:class:`~gprf_torch.utils.profiling.Fit`).
 
     When a block outgrows the padded slot count the capacity grows and the
     run goes on from the current point (:class:`GrowingRunner`).
@@ -279,87 +315,95 @@ def do_optimization_fused_theta(d, fused, theta0, maxsec: float = 3600, max_iter
     ncov = fused.ncov
     ntheta = int(np.asarray(theta0).size)
 
-    runner = GrowingRunner(fused, steps_per_dispatch)
-    it = 0
-    carry = None
-    if resume:
-        carry, it = load_optimizer_state(d, dev)
-    if carry is None:
-        carry = runner.init_fn(torch.as_tensor(np.asarray(theta0).reshape(-1), dtype=dtype, device=dev))
+    S = steps_per_dispatch
+    with profiling.fit(fused.m) as fit:
+        runner = GrowingRunner(fused, S)
         it = 0
-    appending = bool(resume and it)
-    if appending:
-        _truncate_log_rows(os.path.join(d, "log.txt"), it)
-        _truncate_log_rows(os.path.join(d, "covs.txt"), it)
-    f_log = open(os.path.join(d, "log.txt"), "a" if appending else "w")
-    # covs.txt only on cov-bearing tasks
-    covf = open(os.path.join(d, "covs.txt"), "a" if appending else "w") if ncov else None
-    t0 = time.time()
-    prev_best = np.inf
-    stall = 0
-    last_ckpt = -np.inf
+        carry = None
+        if resume:
+            carry, it = load_optimizer_state(d, dev)
+        if carry is None:
+            carry = runner.init_fn(torch.as_tensor(np.asarray(theta0).reshape(-1), dtype=dtype,
+                                                   device=dev))
+            it = 0
+        appending = bool(resume and it)
+        if appending:
+            _truncate_log_rows(os.path.join(d, "log.txt"), it)
+            _truncate_log_rows(os.path.join(d, "covs.txt"), it)
+        f_log = open(os.path.join(d, "log.txt"), "a" if appending else "w")
+        # covs.txt only on cov-bearing tasks
+        covf = open(os.path.join(d, "covs.txt"), "a" if appending else "w") if ncov else None
+        t0 = time.time()
+        prev_best = np.inf
+        stall = 0
+        last_ckpt = -np.inf
 
-    def theta_host():
-        return carry["x"].double().cpu().numpy()
+        def theta_host():
+            return _host(carry["x"].double())
 
-    def checkpoint(it_base):
-        theta = theta_host()
-        # never leave a non-finite step_*_X.npy for the analysis to read
-        if not np.all(np.isfinite(theta)):
-            raise FloatingPointError("optimizer diverged to non-finite theta")
-        X, FC = fused.unpack_host(theta)
-        # the index of this dispatch's last logged row, so the analysis
-        # finds a checkpoint for the final step
-        save_step(d, it_base + steps_per_dispatch - 1, X=X, FC=FC)
-        save_optimizer_state(d, carry, it_base + steps_per_dispatch)
+        def checkpoint(it_base):
+            fit_counts["checkpoints"] += 1
+            with span("checkpoint"):
+                theta = theta_host()
+                # never leave a non-finite step_*_X.npy for the analysis to read
+                if not np.all(np.isfinite(theta)):
+                    raise FloatingPointError("optimizer diverged to non-finite theta")
+                X, FC = fused.unpack_host(theta)
+                # the index of this dispatch's last logged row, so the analysis
+                # finds a checkpoint for the final step
+                save_step(d, it_base + S - 1, X=X, FC=FC)
+                save_optimizer_state(d, carry, it_base + S)
 
-    try:
-        while it < max_iters and time.time() - t0 < maxsec:
-            carry, (step_values, _, _, overflow) = runner.run_fn(carry)
-            # the cov tail of the last EVALUATED point (x_prev; carry["x"]
-            # is the next proposal), so the covs.txt row pairs with the
-            # logged objective
-            out = torch.cat([step_values.double(), overflow.double().reshape(1),
-                             carry["x_prev"][ntheta - ncov:].double()]).cpu().numpy()
-            values = -out[:steps_per_dispatch]  # stored as nll, logged as ll
-            tail = out[steps_per_dispatch + 1:]
-            if not np.all(np.isfinite(values)):
-                raise FloatingPointError("optimizer diverged to non-finite objective")
-            if out[steps_per_dispatch]:
-                carry = runner.grow(carry)
-                # as in the reference, the restarted carry's last evaluated
-                # point is the current one, and this dispatch's row shows it
-                tail = carry["x_prev"][ntheta - ncov:].double().cpu().numpy()
-            now = time.time() - t0
-            if now - last_ckpt >= ckpt_every_sec:
-                checkpoint(it)
-                last_ckpt = now
-            for k, v in enumerate(values):
-                f_log.write("%d %.2f %.2f\n" % (it + k, now, float(v)))
-            f_log.flush()
+        try:
+            while it < max_iters and time.time() - t0 < maxsec:
+                with span("dispatch"):
+                    carry, (step_values, accepted, _, overflow) = runner.run_fn(carry)
+                    # the cov tail of the last EVALUATED point (x_prev; carry["x"]
+                    # is the next proposal), so the covs.txt row pairs with the
+                    # logged objective
+                    out = _host(torch.cat([step_values.double(), accepted.double(),
+                                           overflow.double().reshape(1),
+                                           carry["x_prev"][ntheta - ncov:].double()]))
+                    values = -out[:S]  # stored as nll, logged as ll
+                    fit_counts["steps_accepted"] += int(out[S:2 * S].sum())
+                    tail = out[2 * S + 1:]
+                    if not np.all(np.isfinite(values)):
+                        raise FloatingPointError("optimizer diverged to non-finite objective")
+                    if out[2 * S]:
+                        carry = runner.grow(carry)
+                        # as in the reference, the restarted carry's last evaluated
+                        # point is the current one, and this dispatch's row shows it
+                        tail = _host(carry["x_prev"][ntheta - ncov:].double())
+                    now = time.time() - t0
+                    for k, v in enumerate(values):
+                        f_log.write("%d %.2f %.2f\n" % (it + k, now, float(v)))
+                    f_log.flush()
+                    if covf is not None:
+                        covf.write("%d %s\n" % (it + S - 1, _fc_from_tail(fused, tail, ntheta)))
+                        covf.flush()
+                if now - last_ckpt >= ckpt_every_sec:
+                    checkpoint(it)
+                    last_ckpt = now
+                it += S
+                best = float((-values).min())
+                if prev_best - best < ftol * (abs(prev_best) + 1e-12):
+                    stall += 1  # noise-tolerant: several stalled dispatches in a row
+                    if stall >= stall_patience:
+                        break
+                else:
+                    stall = 0
+                prev_best = min(prev_best, best)
+            if it:
+                checkpoint(it - S)
+        finally:
+            f_log.write("optimization finished after %.fs\n" % (time.time() - t0))
+            f_log.close()
             if covf is not None:
-                covf.write("%d %s\n" % (it + steps_per_dispatch - 1,
-                                        _fc_from_tail(fused, tail, ntheta)))
-                covf.flush()
-            it += steps_per_dispatch
-            best = float((-values).min())
-            if prev_best - best < ftol * (abs(prev_best) + 1e-12):
-                stall += 1  # noise-tolerant: several stalled dispatches in a row
-                if stall >= stall_patience:
-                    break
-            else:
-                stall = 0
-            prev_best = min(prev_best, best)
-        if it:
-            checkpoint(it - steps_per_dispatch)
-    finally:
-        f_log.write("optimization finished after %.fs\n" % (time.time() - t0))
-        f_log.close()
-        if covf is not None:
-            covf.close()
-        with open(os.path.join(d, "finished"), "w") as f:
-            f.write("")
-    return theta_host()
+                covf.close()
+            with open(os.path.join(d, "finished"), "w") as f:
+                f.write("")
+            fit.write(d, fused.m)
+        return theta_host()
 
 
 def do_optimization_fused(d, fused, X0, maxsec: float = 3600, max_iters: int = 400,
@@ -436,87 +480,98 @@ def _run_multistart(d, fused, theta0s, unpack_fn, write_covs, maxsec, max_iters,
     best replica.  The checkpointed and returned point is the winner's last
     evaluated point ``x_prev`` (whose value is ``v``).
 
-    Per dispatch the host reads the [R, steps] values, the health mask, the
-    [R] overflow flags and the winner's cov tail; the [R, n] thetas cross
-    on the ``ckpt_every_sec`` cadence and after the last dispatch.  On an
-    overflow every replica grows together and keeps its curvature memory
-    (:class:`GrowingRunner`, restarted at ``x_prev``)."""
+    Per dispatch the host reads the [R, steps] values and acceptance, the
+    health mask, the [R] overflow flags and the winner's cov tail; the
+    [R, n] thetas cross on the ``ckpt_every_sec`` cadence and after the last
+    dispatch.  On an overflow every replica grows together and keeps its
+    curvature memory (:class:`GrowingRunner`, restarted at ``x_prev``).
+    ``counters.json`` is written beside ``finished``; its ``steps_accepted``
+    sums the replicas' accepted steps."""
     dev, dtype = fused.device, fused.dtype
     theta0s = np.asarray(theta0s, dtype=np.float64)
     R, ntheta = theta0s.shape
-    runner = GrowingRunner(fused, steps_per_dispatch)
-    carry = runner.init_fn(torch.as_tensor(theta0s, dtype=dtype, device=dev))
-    f_log = open(os.path.join(d, "log.txt"), "w")
-    f_ms = open(os.path.join(d, "multistart.txt"), "w")
-    ncov = fused.ncov if write_covs else 0
-    covf = open(os.path.join(d, "covs.txt"), "w") if ncov else None
-    t0 = time.time()
-    it = 0
-    prev_best = np.full((R,), np.inf)
-    stall = 0
-    last_ckpt = -np.inf
+    S = steps_per_dispatch
+    with profiling.fit(fused.m, replicas=R) as fit:
+        runner = GrowingRunner(fused, S)
+        carry = runner.init_fn(torch.as_tensor(theta0s, dtype=dtype, device=dev))
+        f_log = open(os.path.join(d, "log.txt"), "w")
+        f_ms = open(os.path.join(d, "multistart.txt"), "w")
+        ncov = fused.ncov if write_covs else 0
+        covf = open(os.path.join(d, "covs.txt"), "w") if ncov else None
+        t0 = time.time()
+        it = 0
+        prev_best = np.full((R,), np.inf)
+        stall = 0
+        last_ckpt = -np.inf
 
-    def checkpoint(it_base):
-        thetas = carry["x_prev"].double().cpu().numpy()
-        best_r = int(torch.argmin(carry["v"]))
-        X, FC = unpack_fn(thetas[best_r])
-        save_step(d, it_base + steps_per_dispatch - 1, X=X, FC=FC)
+        def checkpoint(it_base):
+            fit_counts["checkpoints"] += 1
+            with span("checkpoint"):
+                thetas = _host(carry["x_prev"].double())
+                best_r = int(_host(torch.argmin(carry["v"])))
+                X, FC = unpack_fn(thetas[best_r])
+                save_step(d, it_base + S - 1, X=X, FC=FC)
 
-    try:
-        while it < max_iters and time.time() - t0 < maxsec:
-            carry, (values, _, _, overflow) = runner.run_fn(carry)
-            vals = values.double().cpu().numpy()  # [R, steps] nll
-            bad = _replica_bad_mask(carry["x"], carry["v"]).cpu().numpy()
-            carry, n_restarted = _sanitize_replicas(carry, bad)
-            if n_restarted:
-                print("multistart: restarted %d diverged replica(s)" % n_restarted)
-            # a replica just restarted at its last finite point is checked
-            # again at the next dispatch
-            if (overflow.cpu().numpy() & ~bad).any():
-                carry = runner.grow(carry, at="x_prev")
-            now = time.time() - t0
-            cur_v = carry["v"].double().cpu().numpy()
-            best_r = int(np.argmin(cur_v))
-            for k in range(vals.shape[1]):
-                f_ms.write("%d %.2f %s\n" % (it + k, now, " ".join("%.2f" % (-v) for v in vals[:, k])))
-                f_log.write("%d %.2f %.2f\n" % (it + k, now, float(-vals[best_r, k])))
-            f_ms.flush()
-            f_log.flush()
+        try:
+            while it < max_iters and time.time() - t0 < maxsec:
+                with span("dispatch"):
+                    carry, (values, accepted, _, overflow) = runner.run_fn(carry)
+                    # [R, steps] nll, then the steps' acceptance
+                    out = _host(torch.cat([values.double(), accepted.double()], dim=-1))
+                    vals = out[:, :S]
+                    fit_counts["steps_accepted"] += int(out[:, S:].sum())
+                    bad = _host(_replica_bad_mask(carry["x"], carry["v"]))
+                    carry, n_restarted = _sanitize_replicas(carry, bad)
+                    if n_restarted:
+                        print("multistart: restarted %d diverged replica(s)" % n_restarted)
+                    # a replica just restarted at its last finite point is checked
+                    # again at the next dispatch
+                    if (_host(overflow) & ~bad).any():
+                        carry = runner.grow(carry, at="x_prev")
+                    now = time.time() - t0
+                    cur_v = _host(carry["v"].double())
+                    best_r = int(np.argmin(cur_v))
+                    for k in range(vals.shape[1]):
+                        f_ms.write("%d %.2f %s\n" % (it + k, now,
+                                                     " ".join("%.2f" % (-v) for v in vals[:, k])))
+                        f_log.write("%d %.2f %.2f\n" % (it + k, now, float(-vals[best_r, k])))
+                    f_ms.flush()
+                    f_log.flush()
+                    if covf is not None:
+                        tail = _host(carry["x_prev"][best_r, ntheta - ncov:].double())
+                        covf.write("%d %s\n" % (it + S - 1, _fc_from_tail(fused, tail, ntheta)))
+                        covf.flush()
+                if now - last_ckpt >= ckpt_every_sec:
+                    checkpoint(it)
+                    last_ckpt = now
+                it += S
+                # per-replica progress; a diverged replica's NaN column counts as
+                # +inf, so that it can register improvement after its restart
+                vals_f = np.where(np.isfinite(vals), vals, np.inf)
+                best_per = np.minimum(prev_best, vals_f.min(axis=1))
+                improved = prev_best - best_per >= ftol * (np.abs(prev_best) + 1e-12)
+                if not improved.any():
+                    stall += 1
+                    if stall >= stall_patience:
+                        break
+                else:
+                    stall = 0
+                prev_best = best_per
+            if it:
+                # the analysis reads the checkpoint of the last logged step
+                checkpoint(it - S)
+        finally:
+            f_log.write("optimization finished after %.fs\n" % (time.time() - t0))
+            f_log.close()
+            f_ms.close()
             if covf is not None:
-                tail = carry["x_prev"][best_r, ntheta - ncov:].double().cpu().numpy()
-                covf.write("%d %s\n" % (it + steps_per_dispatch - 1,
-                                        _fc_from_tail(fused, tail, ntheta)))
-                covf.flush()
-            if now - last_ckpt >= ckpt_every_sec:
-                checkpoint(it)
-                last_ckpt = now
-            it += steps_per_dispatch
-            # per-replica progress; a diverged replica's NaN column counts as
-            # +inf, so that it can register improvement after its restart
-            vals_f = np.where(np.isfinite(vals), vals, np.inf)
-            best_per = np.minimum(prev_best, vals_f.min(axis=1))
-            improved = prev_best - best_per >= ftol * (np.abs(prev_best) + 1e-12)
-            if not improved.any():
-                stall += 1
-                if stall >= stall_patience:
-                    break
-            else:
-                stall = 0
-            prev_best = best_per
-        if it:
-            # the analysis reads the checkpoint of the last logged step
-            checkpoint(it - steps_per_dispatch)
-    finally:
-        f_log.write("optimization finished after %.fs\n" % (time.time() - t0))
-        f_log.close()
-        f_ms.close()
-        if covf is not None:
-            covf.close()
-        with open(os.path.join(d, "finished"), "w") as f:
-            f.write("")
-    final_v = carry["v"].double().cpu().numpy()
-    best_r = int(np.argmin(final_v))
-    return carry["x_prev"][best_r].double().cpu().numpy(), float(final_v[best_r]), final_v
+                covf.close()
+            with open(os.path.join(d, "finished"), "w") as f:
+                f.write("")
+            fit.write(d, fused.m)
+        final_v = _host(carry["v"].double())
+        best_r = int(np.argmin(final_v))
+        return _host(carry["x_prev"][best_r].double()), float(final_v[best_r]), final_v
 
 
 def do_optimization_multistart(d, fused, X0s, maxsec: float = 3600, max_iters: int = 400,
@@ -583,47 +638,50 @@ def refine_f64(d, make_fused, x32, it0, iters: int = 60, steps_per_dispatch: int
         # a dispatch of ten wide-m steps would overrun the time budget's cadence
         steps_per_dispatch = min(steps_per_dispatch, 2)
     print("refine_f64: running the f64 tail on %s" % (fused.device,))
-    runner = GrowingRunner(fused, steps_per_dispatch)
-    carry = runner.init_fn(torch.as_tensor(np.asarray(x32, dtype=np.float64),
-                                           device=fused.device))
-    f_log = open(os.path.join(d, "log.txt"), "a")
-    # opened at the first cov row: a task=x run grows no empty covs.txt
-    covf = None
-    t0 = time.time()
-    it = it0
-    prev_best = np.inf
-    stall = 0
-    try:
-        while it < it0 + iters and time.time() - t0 < maxsec:
-            carry, (step_values, _, _, overflow) = runner.run_fn(carry)
-            out = torch.cat([step_values, overflow.double().reshape(1)]).cpu().numpy()
-            values = -out[:steps_per_dispatch]
-            if out[steps_per_dispatch]:
-                carry = runner.grow(carry)
-            step_idx = it + steps_per_dispatch - 1
-            X, FC = fused.unpack_host(carry["x"].cpu().numpy())
-            save_step(d, step_idx, X=X, FC=FC)
-            if FC is not None:
-                if covf is None:
-                    covf = open(os.path.join(d, "covs.txt"), "a")
-                covf.write("%d %s\n" % (step_idx, FC))
-                covf.flush()
-            now = time.time() - t0
-            for k, v in enumerate(values):
-                f_log.write("%d %.2f %.2f\n" % (it + k, now, float(v)))
-            f_log.flush()
-            it += steps_per_dispatch
-            best = float((-values).min())
-            if prev_best - best < 1e-9 * (abs(prev_best) + 1e-12):
-                stall += 1
-                if stall >= 2:
-                    break
-            else:
-                stall = 0
-            prev_best = min(prev_best, best)
-    finally:
-        f_log.write("f64 refinement finished after %.fs\n" % (time.time() - t0))
-        f_log.close()
-        if covf is not None:
-            covf.close()
-    return carry["x"].cpu().numpy()
+    S = steps_per_dispatch
+    with profiling.fit(fused.m):
+        runner = GrowingRunner(fused, S)
+        carry = runner.init_fn(torch.as_tensor(np.asarray(x32, dtype=np.float64),
+                                               device=fused.device))
+        f_log = open(os.path.join(d, "log.txt"), "a")
+        # opened at the first cov row: a task=x run grows no empty covs.txt
+        covf = None
+        t0 = time.time()
+        it = it0
+        prev_best = np.inf
+        stall = 0
+        try:
+            while it < it0 + iters and time.time() - t0 < maxsec:
+                with span("dispatch"):
+                    carry, (step_values, _, _, overflow) = runner.run_fn(carry)
+                    out = _host(torch.cat([step_values, overflow.double().reshape(1)]))
+                    values = -out[:S]
+                    if out[S]:
+                        carry = runner.grow(carry)
+                    step_idx = it + S - 1
+                    X, FC = fused.unpack_host(_host(carry["x"]))
+                    save_step(d, step_idx, X=X, FC=FC)
+                    if FC is not None:
+                        if covf is None:
+                            covf = open(os.path.join(d, "covs.txt"), "a")
+                        covf.write("%d %s\n" % (step_idx, FC))
+                        covf.flush()
+                    now = time.time() - t0
+                    for k, v in enumerate(values):
+                        f_log.write("%d %.2f %.2f\n" % (it + k, now, float(v)))
+                    f_log.flush()
+                it += S
+                best = float((-values).min())
+                if prev_best - best < 1e-9 * (abs(prev_best) + 1e-12):
+                    stall += 1
+                    if stall >= 2:
+                        break
+                else:
+                    stall = 0
+                prev_best = min(prev_best, best)
+        finally:
+            f_log.write("f64 refinement finished after %.fs\n" % (time.time() - t0))
+            f_log.close()
+            if covf is not None:
+                covf.close()
+        return _host(carry["x"])

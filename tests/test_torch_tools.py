@@ -1,7 +1,7 @@
 """gprf_torch's analysis tools, profiling and seismic data pipeline against
 gprf_tpu's on the same inputs: the fleet's suites and launcher scripts, the
 paper's figure series, the plots, ``python -m gprf_torch.cli.analyze``,
-``device_trace`` / ``SectionTimer``, and ISF parsing, waveform alignment and
+``device_trace``, and ISF parsing, waveform alignment and
 the catalog join and sort."""
 
 import json
@@ -18,7 +18,6 @@ from gprf_tpu.cli import gprfopt as jgprfopt
 from gprf_tpu.data.pipeline import align as jalign
 from gprf_tpu.data.pipeline import catalog as jcat
 from gprf_tpu.data.pipeline import isf as jisf
-from gprf_tpu.utils import profiling as jprof
 from gprf_torch.analysis import fleet as tfleet
 from gprf_torch.analysis import paper_figures as tfig
 from gprf_torch.analysis import plots as tplots
@@ -161,19 +160,6 @@ def test_device_trace_writes_a_trace_on_the_cpu(tmp_path):
     with open(log_dir / name) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "aten::mm" for e in events)
-
-
-def test_section_timer_summary_matches_jax():
-    t, j = tprof.SectionTimer(), jprof.SectionTimer()
-    for timer in (t, j):
-        with timer.section("a"):
-            pass
-        with timer.section("b"):
-            pass
-        with timer.section("a"):
-            pass
-        timer.totals.update(a=2.5, b=0.25)
-    assert t.summary() == j.summary() == "a 2.500s/2; b 0.250s/1"
 
 
 # ---- the seismic data pipeline -------------------------------------------------------
