@@ -17,9 +17,14 @@ and then folded into the objective's kernel batch
 (:func:`gprf_torch.model.objective.gprf_ll_schur`), so one gradient of the
 sum gives each replica its own gradient.
 
-Past m = 512 the losses chunk the pair pass by 64 edges, recomputing each
-chunk's forward in the backward, as the reference does (its chunk sweep
-at the 80k shapes chose 64); ``pair_chunk`` sets another chunk.
+The losses chunk the pair pass only where the whole pass would not fit
+half the card's memory (:func:`gprf_torch.model.objective.auto_pair_chunk`
+at each call's R, m, edges and dtype), then in the fewest equal chunks,
+each chunk's forward computed again in the backward.  The reference
+chunks by 64 edges past m = 512 (its chunk sweep at the 80k shapes, on a
+TPU's memory); the port keeps that rule on the CPU.  A chunk changes only
+the order in which the pair terms are summed.  ``pair_chunk`` sets the
+chunk instead.
 
 :func:`fused_grid_objective` and :func:`fused_grid_value_and_grad` are the
 reference's functional forms of the grid task-x objective, with
@@ -35,7 +40,8 @@ import numpy as np
 import torch
 
 from gprf_torch.kernels.gpcov import GPCov
-from gprf_torch.model.objective import GPRFParams, _value_and_grad, gprf_ll, gprf_ll_schur
+from gprf_torch.model.objective import (GPRFParams, _value_and_grad, auto_pair_chunk, gprf_ll,
+                                        gprf_ll_schur, pair_budget_bytes)
 from gprf_torch.ops.mvn import KERNEL_OPS, Ops
 from gprf_torch.partition.rpc_device import FlatRPCTree, assign_blocks_rpc
 from gprf_torch.utils.profiling import span
@@ -156,9 +162,10 @@ class FusedSyntheticGPRF:
     twins under PyTorch's autograd, for comparison.  ``mvn_inv`` and
     ``unary_doubling`` pick a route of the objective
     (:mod:`gprf_torch.model.objective`); both default off.  ``pair_chunk``
-    chunks the pair pass (default: 64 edges past m = 512, else none;
-    :attr:`loss_pair_chunk`).  Like ``ops``, they are attributes that each
-    new loss reads when it is made.
+    chunks the pair pass (default: none where the whole pass fits half the
+    card's memory, else the fewest equal chunks that fit; on the CPU 64
+    edges past m = 512; :meth:`loss_pair_chunk`).  Like ``ops``, they are
+    attributes that each new loss reads when it is made.
     """
 
     COV_SCALE = 5.0
@@ -281,13 +288,21 @@ class FusedSyntheticGPRF:
     def grow_capacity(self):
         self.m += 16
 
-    @property
-    def loss_pair_chunk(self) -> int | None:
-        """The pair chunk of the losses made at the current m: the given
-        one, else the reference's wide-m default, 64 edges past m = 512."""
-        if self.pair_chunk is None and self.m > 512:
-            return 64
-        return self.pair_chunk
+    def loss_pair_chunk(self, replicas: int = 1) -> int | None:
+        """The pair chunk of a loss made now, called on ``replicas``
+        thetas: the given one, else :func:`auto_pair_chunk` of the edges,
+        the replicas, the current m and the dtype against half the card's
+        memory (on the CPU, the reference's 64 edges past m = 512)."""
+        return self._pair_chunk_rule()(replicas)
+
+    def _pair_chunk_rule(self):
+        """replicas -> pair chunk, from the attributes as they are now."""
+        if self.pair_chunk is not None:
+            given = self.pair_chunk
+            return lambda R: given
+        E, m, itemsize = self.edges.shape[0], self.m, self.Y.element_size()
+        budget = pair_budget_bytes(self.device)
+        return lambda R: auto_pair_chunk(E, R, m, itemsize, budget)
 
     def _unpack(self, theta, X_fixed):
         """Each replica's X [R, n, dx] from thetas [R, ntheta]."""
@@ -322,8 +337,8 @@ class FusedSyntheticGPRF:
         cov_scale, obs_std = self.COV_SCALE, self.obs_std
         X_fixed = torch.as_tensor(self.X0, dtype=dtype, device=dev)
         acc_dtype, ops = self.acc_dtype, self.ops
-        routes = dict(mvn_inv=self.mvn_inv, unary_doubling=self.unary_doubling,
-                      pair_chunk=self.loss_pair_chunk)
+        routes = dict(mvn_inv=self.mvn_inv, unary_doubling=self.unary_doubling)
+        pair_chunk = self._pair_chunk_rule()
 
         def objective(theta):
             th = theta.reshape(-1, theta.shape[-1])
@@ -349,7 +364,7 @@ class FusedSyntheticGPRF:
             ll = gprf_ll_schur(
                 params, self.Y, assignment, mask, self.edges, self.unary_weights,
                 self.pair_weights, dfn_str=base_cov.dfn_str, wfn_str=base_cov.wfn_str,
-                acc_dtype=acc_dtype, ops=ops, **routes,
+                acc_dtype=acc_dtype, ops=ops, pair_chunk=pair_chunk(R), **routes,
             )
             with span("prior"):
                 if task in ("x", "xcov"):

@@ -40,7 +40,11 @@ again in the backward (``torch.utils.checkpoint``; ``jax.checkpoint`` under
 ``lax.map`` in the reference), so the backward keeps one chunk's
 factorizations alive at a time.  The Schur form pads the edges with
 zero-weight (0, 0) dummy edges to a multiple of the chunk, as the
-reference does.
+reference does.  :func:`auto_pair_chunk` is the fused engines' rule: no
+chunk where the whole pass fits half the card's memory, else the fewest
+equal chunks that fit.  The reference chunks by 64 edges past m = 512, a
+size set by a TPU's memory; the port keeps that rule on the CPU only.  A
+chunk changes only the order in which the pair terms are summed.
 
 All float32 products run at full precision (``gprf_torch`` pins TF32
 off): the Schur complement must stay numerically positive definite.
@@ -60,9 +64,47 @@ from gprf_torch.linalg.doubling import batched_tri_inv_doubling
 from gprf_torch.linalg.masked import masked_gaussian_ll, pad_kernel_matrix
 from gprf_torch.ops.mvn import KERNEL_OPS, Ops
 from gprf_torch.ops.split_mvn import chol_inv_split, cholesky_split, mvn_ll_split
-from gprf_torch.utils.profiling import span
+from gprf_torch.utils.profiling import fit_counts, span
 
 _LOG_2PI = math.log(2.0 * math.pi)
+
+# [m, m] buffers an edge that the whole pair pass holds at its peak, per
+# replica, from what its backward keeps: the kernel's [m, m, dx] difference
+# (dx = 2) and exponential, the mask product, the masked Kij, the gathered
+# W_i, B and S, mvn_ll_split's blocks and factors (about 2), and the
+# backward's gradients of those.  Above what was resident, with the unary
+# pass in it, an H100 read 14.5 buffers an edge at m = 896 over 342 edges at
+# R = 1 in float32 (15.9 GB), 14.4 at R = 4 and 15.2 in float64 on LINALG_OPS.
+PAIR_BUFFERS = 16
+# the reference's rule, kept where there is no card: 64 edges past m = 512
+REFERENCE_PAIR_CHUNK = 64
+REFERENCE_CHUNK_PAST_M = 512
+
+
+def pair_budget_bytes(device) -> int | None:
+    """The bytes the pair pass may hold on ``device``: half the card's
+    memory (the total, not what is free, so the choice does not depend on
+    what the caching allocator holds); None on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).total_memory // 2
+
+
+def auto_pair_chunk(E: int, R: int, m: int, itemsize: int, budget_bytes: int | None):
+    """The pair chunk of E edges of R replicas at width m and ``itemsize``
+    bytes an element: None (the whole pass, no remat, no dummy edges) where
+    R E PAIR_BUFFERS m^2 itemsize bytes fit ``budget_bytes``, else ceil(E /
+    nch) edges for nch = ceil(need / budget) chunks, which pads fewer than
+    nch dummy edges.  With no budget (the CPU), the reference's 64 edges
+    past m = 512."""
+    if budget_bytes is None:
+        return REFERENCE_PAIR_CHUNK if m > REFERENCE_CHUNK_PAST_M else None
+    need = R * E * PAIR_BUFFERS * m * m * itemsize
+    if need <= budget_bytes:
+        return None
+    nch = -(-need // budget_bytes)
+    return -(-E // nch)
 
 
 class GPRFParams(NamedTuple):
@@ -124,7 +166,8 @@ def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
     per-block quadratic forms, log-determinants and the weighted block
     sums.  ``mvn_inv`` and ``unary_doubling`` pick the routes of the module
     docstring.  ``pair_chunk`` runs the pair pass in chunks of that many
-    edges (module docstring)."""
+    edges (module docstring).  The running fit's ``pair_passes``,
+    ``pair_chunks`` and ``pair_dummy_edges`` count the path taken."""
     dtype = X.dtype
     acc = dtype if acc_dtype is None else acc_dtype
     R, B, m = assignment.shape
@@ -187,13 +230,17 @@ def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
             return torch.sum(pw_c.to(acc) * pair_ll, dim=-1)
 
     edges = edges.long()
+    fit_counts["pair_passes"] += 1
     if pair_chunk is None or E <= pair_chunk:
+        fit_counts["pair_chunks"] += 1
         return total + pair_sum(edges, pair_weights)
     # pad with zero-weight (0, 0) dummy edges to whole chunks: a block
     # against itself has a positive definite Schur complement (the noise
     # variance), so the dummies add exactly 0
     nch = -(-E // pair_chunk)
     pad = nch * pair_chunk - E
+    fit_counts["pair_chunks"] += nch
+    fit_counts["pair_dummy_edges"] += pad
     edges = torch.cat([edges, edges.new_zeros((pad, 2))])
     pair_weights = torch.cat([pair_weights, pair_weights.new_zeros((pad,))])
     for c in range(nch):

@@ -22,7 +22,9 @@ that nothing fills by reading a device tensor: ``counters["launches"]``
 ``counters["fit"]`` (:data:`fit_counts`, the running fit's).  A driver
 opens each fit with :func:`fit`, which gives it a new id, zeroes
 :data:`fit_counts` and, through :meth:`Fit.write`, puts the fit's counters
-into its run directory as ``counters.json``.
+into its run directory as ``counters.json``.  Among them, the Schur
+objective counts the pair passes, their chunks and their zero-weight dummy
+edges where it picks its path.
 
 **The device trace.** :func:`device_trace` records the block with
 ``torch.profiler`` and writes a Chrome trace (Perfetto reads it) with the
@@ -40,7 +42,8 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 FIT_COUNTERS = ("evaluations", "steps", "steps_accepted", "dispatches", "host_syncs",
-                "capacity_growths", "checkpoints")
+                "capacity_growths", "checkpoints", "pair_passes", "pair_chunks",
+                "pair_dummy_edges")
 SPAN_TRACK = "gprf_torch spans"
 
 

@@ -2,7 +2,7 @@
 """The paper's n = 80,000 synthetic experiment on the card, whole fits.
 
     python3 scripts/torch_80k_fit.py [--sampler vecchia|exact] [--local_dist 0.1 1.0]
-                                     [--max_iters N] [--ftol F] [--memory] [--host_seconds S]
+                                     [--max_iters N] [--ftol F] [--host_seconds S]
                                      [--plain float32 float64] [--keep DIR]
                                      [--refine_iters N] [--experiments DIR]
 
@@ -15,13 +15,9 @@ Vecchia draw (GPRF_SAMPLER=vecchia, the draw of the JAX package's
 docs/runs/gprf80k_device and local80k_100_device), ``exact`` the exact
 banded draw (GPRF_SAMPLER unset, its docs/runs/gprf80k_100_yexact).
 
-``--memory`` first measures one loss+grad of the device engine at X_obs:
-peak memory (``torch.cuda.max_memory_allocated``) and host-clock ms, at 1
-and 4 folded replicas, with the pair pass chunked by 64 (the default past
-m = 512) and unchunked; a measurement that runs out of memory is recorded
-as such.  ``--host_seconds`` ends with the host engine (scipy over
-``GPRF.llgrad``) on the same data for that many seconds.  ``--plain``
-adds GPRF-100 on the device engine on the plain twins at each width given
+``--host_seconds`` ends with the host engine (scipy over
+``GPRF.llgrad``) on the same data for that many seconds.  ``--plain`` adds
+GPRF-100 on the device engine on the plain twins at each width given
 (the kernels are float32 only), the same loop and stall rule, to tell
 the kernels' share of a fit's result from float32's; its mad is computed
 at every checkpointed X.  ``--ftol`` passes the device engine's stall
@@ -33,7 +29,7 @@ mad at the float32 loop's end and the tail's seconds.  ``--experiments DIR``
 keeps the data and run directories there (default: a temporary directory),
 so that a draw made by another script is read back, not drawn again.
 
-Prints one JSON line per measurement and per fit (the seconds of the draw,
+Prints one JSON line per fit (the seconds of the draw,
 the fit and the analysis, the iterations, ms per iteration, the capacity m
 at the end, the first and final mad, the objective at the start, the end
 and the true latents) with the card's name and power limit.  Needs one
@@ -61,58 +57,6 @@ DATA = dict(n=80500, ntrain=80000, lscale=0.021213, obs_std=0.007071, yd=50, see
 
 def emit(record, card):
     print(json.dumps(dict(record, card=card)), flush=True)
-
-
-def memory(card):
-    """Peak memory and ms of one loss+grad at X_obs, R = 1 and 4, chunked
-    by 64 and not."""
-    import numpy as np
-    import torch
-
-    from gprf_torch.data.sampled import sample_data
-    from gprf_torch.model.fused import FusedSyntheticGPRF
-    from gprf_torch.optim.lbfgs import value_and_grad
-    from gprf_torch.partition.grid import grid_centers
-
-    t0 = time.perf_counter()
-    data = sample_data(centers=grid_centers(100), **DATA)
-    emit({"what": "draw", "seconds": time.perf_counter() - t0,
-          "sampler": os.environ.get("GPRF_SAMPLER", "")}, card)
-    fused = FusedSyntheticGPRF(data.X_obs, data.SY, data.neighbors, data.X_obs, data.obs_std,
-                               data.cov, data.noise_var, task="x",
-                               centers=np.asarray(data.centers), device="cuda",
-                               dtype=torch.float32, acc_dtype=torch.float64)
-    E = int(fused.edges.shape[0])
-    x = data.X_obs.reshape(-1)
-    rng = np.random.default_rng(1)
-    for R in (1, 4):
-        xs = x if R == 1 else np.stack([x] + [x + rng.standard_normal(x.shape) * data.obs_std
-                                              for _ in range(R - 1)])
-        theta = torch.as_tensor(xs, dtype=torch.float32, device="cuda")
-        for chunk in (64, None):
-            fused.pair_chunk = E if chunk is None else chunk  # a chunk of all edges: none
-            loss = fused.loss_fn()
-            record = {"what": "memory", "replicas": R, "pair_chunk": chunk, "m": fused.m,
-                      "edges": E}
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            resident = torch.cuda.memory_allocated()
-            try:
-                value_and_grad(loss, theta)  # the first call warms up
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                value_and_grad(loss, theta)
-                torch.cuda.synchronize()
-                record.update(ms=(time.perf_counter() - t0) * 1e3)
-                record.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                              above_resident_gb=(torch.cuda.max_memory_allocated() - resident)
-                              / 1e9)
-            except torch.cuda.OutOfMemoryError as e:
-                record.update(out_of_memory=str(e).splitlines()[0])
-            del loss
-            emit(record, card)
-    fused.pair_chunk = None
 
 
 def keep_files(d, keep, tag):
@@ -241,7 +185,6 @@ def main(argv=None):
     parser.add_argument("--sampler", choices=["vecchia", "exact"], default="vecchia")
     parser.add_argument("--local_dist", type=float, nargs="*", default=[0.1, 1.0])
     parser.add_argument("--max_iters", type=int, default=None)
-    parser.add_argument("--memory", action="store_true")
     parser.add_argument("--host_seconds", type=int, default=0)
     parser.add_argument("--ftol", type=float, default=None)
     parser.add_argument("--plain", nargs="*", default=[], choices=["float32", "float64"])
@@ -261,8 +204,6 @@ def main(argv=None):
         base = args.experiments or stack.enter_context(tempfile.TemporaryDirectory())
         os.makedirs(base, exist_ok=True)
         os.environ["GPRF_EXPERIMENTS"] = base
-        if args.memory:
-            memory(card)
         for local_dist in args.local_dist:
             fit(local_dist, args.max_iters, args.ftol, card, args.keep, args.refine_iters)
         for dtype_name in args.plain:

@@ -25,6 +25,10 @@ pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
 
 RTOL = 1e-4
+# a chunked Schur loss against the same loss whole: the value's relative
+# difference and the gradients' cosine (only the summation order differs)
+CHUNK_RTOL = 1e-6
+CHUNK_COSINE = 0.999999
 
 
 @pytest.fixture
@@ -686,8 +690,59 @@ def test_chunked_schur_loss_on_card_equals_unchunked(dev, R):
     (v, g, n_whole), (vc, gc, n_chunked) = out
     assert n_whole["mvn_ll"] == 1 and n_chunked["mvn_ll"] == 2 * nch
     assert n_chunked["tri_inv"] == nch
-    assert float(((v - vc).abs() / v.abs()).max()) <= 1e-6
-    assert float(g @ gc / (g.norm() * gc.norm())) > 0.999999
+    assert float(((v - vc).abs() / v.abs()).max()) <= CHUNK_RTOL
+    assert float(g @ gc / (g.norm() * gc.norm())) > CHUNK_COSINE
+
+
+def test_pair_chunk_rule_on_card_at_80k(dev):
+    """The 80k shapes (80,000 points, 100 grid blocks, 342 edges, m > 512,
+    dy 50) at R = 1: the rule runs the pair pass whole (no remat, no dummy
+    edge); its loss and gradient equal pair_chunk=64's, and its peak memory
+    above the resident stays within [0.5, 1.25] times the rule's estimate
+    E PAIR_BUFFERS m^2 4 bytes."""
+    from gprf_torch.kernels.gpcov import GPCov
+    from gprf_torch.model.fused import FusedSyntheticGPRF
+    from gprf_torch.model.objective import PAIR_BUFFERS
+    from gprf_torch.optim.lbfgs import value_and_grad
+    from gprf_torch.partition.grid import Blocker, grid_centers
+    from gprf_torch.utils import profiling
+
+    rng = np.random.default_rng(80)
+    n, dy, obs_std = 80000, 50, 0.007071
+    SX = rng.uniform(size=(n, 2))
+    X_obs = SX + obs_std * rng.standard_normal(SX.shape)
+    centers = np.asarray(grid_centers(100))
+    cov = GPCov.create([1.0], [0.021213, 0.021213], "euclidean", "se", device=dev,
+                       dtype=torch.float32)
+    fused = FusedSyntheticGPRF(X_obs, rng.standard_normal((n, dy)),
+                               Blocker(centers).neighbors(diag_connections=True), X_obs, obs_std,
+                               cov, 0.01, task="x", centers=centers, device=dev,
+                               dtype=torch.float32, acc_dtype=torch.float64)
+    E, m = fused.edges.shape[0], fused.m
+    assert E == 342 and m > 512 and fused.loss_pair_chunk() is None
+    x = torch.as_tensor(fused.theta0(), dtype=torch.float32, device=dev)
+    out = {}
+    for chunk in (None, 64):
+        fused.pair_chunk = chunk
+        loss = fused.loss_fn()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        profiling.fit_counts.update(pair_passes=0, pair_chunks=0, pair_dummy_edges=0)
+        v, g = value_and_grad(loss, x)
+        torch.cuda.synchronize()
+        counts = {k: profiling.fit_counts[k]
+                  for k in ("pair_passes", "pair_chunks", "pair_dummy_edges")}
+        out[chunk] = (float(v), g.double(), torch.cuda.max_memory_allocated() - resident, counts)
+        del loss, v, g
+    (v, g, peak, counts), (vc, gc, _, counts_c) = out[None], out[64]
+    assert counts == dict(pair_passes=1, pair_chunks=1, pair_dummy_edges=0)
+    assert counts_c == dict(pair_passes=1, pair_chunks=6, pair_dummy_edges=6 * 64 - E)
+    assert abs(v - vc) <= CHUNK_RTOL * abs(v)
+    assert float(g @ gc / (g.norm() * gc.norm())) > CHUNK_COSINE
+    estimate = E * PAIR_BUFFERS * m * m * 4
+    assert 0.5 * estimate <= peak <= 1.25 * estimate, (peak / 1e9, estimate / 1e9)
 
 
 def _wide_blocks_value_and_grad(dev, dtype, ops, m=248, dy=4):

@@ -225,7 +225,7 @@ def test_fused_synthetic_pair_chunk_equals_unchunked():
     out = []
     for chunk in (None, 3):
         fused = _fused_problem(pair_chunk=chunk)
-        assert fused.loss_pair_chunk == chunk
+        assert fused.loss_pair_chunk() == chunk
         theta = torch.as_tensor(fused.theta0()).requires_grad_(True)
         v = fused.loss_fn()(theta)
         out.append((v.detach(), torch.autograd.grad(v, theta)[0]))
@@ -234,13 +234,73 @@ def test_fused_synthetic_pair_chunk_equals_unchunked():
 
 
 def test_fused_synthetic_picks_64_past_m_512():
-    """The reference's wide-m default: 64 edges past m = 512, else none."""
-    assert _fused_problem().loss_pair_chunk is None
+    """On the CPU the reference's wide-m rule: 64 edges past m = 512, else
+    none, at any R; a given pair_chunk wins."""
+    assert _fused_problem().loss_pair_chunk() is None
     fused = _fused_problem(m=512)
-    assert fused.loss_pair_chunk is None
+    assert fused.loss_pair_chunk() is None
     fused.grow_capacity()
-    assert fused.m == 528 and fused.loss_pair_chunk == 64
-    assert _fused_problem(m=520, pair_chunk=5).loss_pair_chunk == 5
+    assert fused.m == 528 and fused.loss_pair_chunk() == fused.loss_pair_chunk(4) == 64
+    assert _fused_problem(m=520, pair_chunk=5).loss_pair_chunk(4) == 5
+
+
+GB = 10**9
+
+
+# (E, R, m, itemsize, budget bytes, chunk): the 80k shapes against half an
+# 80 GB card, and the CPU's rule (no budget)
+@pytest.mark.parametrize("E,R,m,itemsize,budget,chunk", [
+    (342, 1, 896, 4, 40 * GB, None),  # 17.6 GB fits: the whole pass
+    (342, 4, 896, 4, 40 * GB, 171),  # 70.3 GB: two equal chunks, no dummy
+    (343, 4, 896, 4, 40 * GB, 172),  # one dummy edge, fewer than the 2 chunks
+    (342, 1, 896, 8, 20 * GB, 171),  # float64 doubles the 17.6 GB
+    (342, 1, 896, 4, 20 * GB, None),  # ... which float32 fits
+    (342, 7, 896, 4, 40 * GB, 86),  # 123 GB: 4 chunks of 86, 2 dummy edges
+    (0, 4, 896, 4, 40 * GB, None),  # no edges (Local)
+    (342, 1, 520, 4, None, 64),  # the CPU: the reference's 64 past m = 512
+    (342, 4, 512, 8, None, None),
+])
+def test_auto_pair_chunk(E, R, m, itemsize, budget, chunk):
+    assert tobj.auto_pair_chunk(E, R, m, itemsize, budget) == chunk
+    if chunk is None or budget is None:
+        return
+    nch = -(-E // chunk)
+    need = R * E * tobj.PAIR_BUFFERS * m * m * itemsize
+    # equal chunks that each fit, with fewer dummy edges than chunks
+    assert R * chunk * tobj.PAIR_BUFFERS * m * m * itemsize <= budget < need
+    assert 0 <= nch * chunk - E < -(-need // budget)
+
+
+def test_auto_pair_chunk_scales_with_replicas_and_itemsize():
+    for E, m in ((342, 896), (342, 640), (1000, 888), (5, 2000)):
+        for budget in (GB, 20 * GB, 40 * GB):
+            assert (tobj.auto_pair_chunk(E, 2, m, 4, budget)
+                    == tobj.auto_pair_chunk(E, 1, m, 8, budget))
+            assert (tobj.auto_pair_chunk(E, 4, m, 4, budget)
+                    == tobj.auto_pair_chunk(E, 1, m, 4, budget // 4))
+
+
+def test_fused_synthetic_chooses_the_chunk_from_each_calls_replicas(monkeypatch):
+    """Against a budget (the card's half), the loss takes the whole pass
+    where R's need fits, and equal chunks where it does not; the value is
+    the whole pass's and the counters show the path."""
+    from gprf_torch.utils import profiling
+
+    fused = _fused_problem()
+    E, m = fused.edges.shape[0], fused.m
+    one = E * tobj.PAIR_BUFFERS * m * m * 8
+    monkeypatch.setattr(tfused, "pair_budget_bytes", lambda device: 2 * one)
+    assert fused.loss_pair_chunk(1) is None and fused.loss_pair_chunk(2) is None
+    assert fused.loss_pair_chunk(3) == -(-E // 2)
+    theta = torch.as_tensor(np.stack([fused.theta0()] * 3))
+    loss = fused.loss_fn()
+    profiling.fit_counts.update(pair_passes=0, pair_chunks=0, pair_dummy_edges=0)
+    chunked = loss(theta)
+    whole = torch.stack([loss(t) for t in theta])
+    assert profiling.fit_counts["pair_passes"] == 4
+    assert profiling.fit_counts["pair_chunks"] == 2 + 3
+    assert profiling.fit_counts["pair_dummy_edges"] == 2 * -(-E // 2) - E
+    _close(chunked, whole, CHUNK_RTOL)
 
 
 @pytest.mark.parametrize("form", ["schur", "joint"])

@@ -133,6 +133,18 @@ def test_counters_json_of_a_fit(tmp_path):
     assert c["launches"] == dict.fromkeys(mvn.launch_counts, 0)  # the CPU runs the twins
 
 
+@pytest.mark.parametrize("pair_chunk", [None, 4])
+def test_counters_json_counts_the_pair_chunks(tmp_path, pair_chunk):
+    """One pair pass an evaluation: whole on the CPU's rule at this m, or
+    the 6 edges in 2 chunks of 4 with 2 zero-weight dummy edges each."""
+    _fit(tmp_path, _fused(pair_chunk=pair_chunk))
+    c = _counters(tmp_path)
+    assert c["pair_passes"] == c["evaluations"] > 0
+    nch, dummies = (1, 0) if pair_chunk is None else (2, 2)
+    assert c["pair_chunks"] == nch * c["pair_passes"]
+    assert c["pair_dummy_edges"] == dummies * c["pair_passes"]
+
+
 def test_counters_json_across_a_forced_growth(tmp_path):
     fit_m = _fused().m
     fused = _fused(m=fit_m - 16)
