@@ -18,6 +18,11 @@ As in :mod:`gprf_torch.model.fused`, the losses take theta [ntheta] or R
 replicas [R, ntheta], and ``ops``, ``mvn_inv`` and ``unary_doubling`` pick
 the leaf primitives and the route of the objective.  ``pair_chunk`` chunks
 the pair pass; unlike the synthetic engine's, it has no default (none).
+
+The loss marks its PD-tree re-block (``pdtree_reblock``) and its priors
+(``prior``) with spans of :mod:`gprf_torch.utils.profiling`;
+:func:`~gprf_torch.model.objective.gprf_ll_schur` marks its ``unary_pass``
+and ``pair_pass``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from gprf_torch.model.objective import GPRFParams, gprf_ll_schur
 from gprf_torch.ops.mvn import KERNEL_OPS, Ops
 from gprf_torch.partition.pdtree import wrap_lon
 from gprf_torch.partition.pdtree_device import FlatPDTree, assign_blocks_pdtree
+from gprf_torch.utils.profiling import span
 
 _LOG2PI = math.log(2.0 * math.pi)
 _COV_PRIOR_MEANS = (-2.3, 0.0, 3.6, 3.6)
@@ -208,20 +214,22 @@ class FusedSeismicGPRF:
                 ls = base_cov.dfn_params.expand(R, -1)
 
             # membership is piecewise constant in X: outside the graph
-            assignment, mask, _ = stacked_layout(self._blocks(X.detach()), B, m)
+            with span("pdtree_reblock"):
+                assignment, mask, _ = stacked_layout(self._blocks(X.detach()), B, m)
             params = GPRFParams(X=X, wfn_params=sv, dfn_params=ls, noise_var=nv)
             ll = gprf_ll_schur(params, self.Y, assignment, mask, self.edges,
                                self.unary_weights, self.pair_weights, dfn_str="lld",
                                wfn_str="matern32", acc_dtype=acc_dtype, ops=ops, **routes)
-            if task in ("x", "xcov"):
-                r = (X - prior_means) / prior_std
-                ll = ll - 0.5 * torch.sum(r * r, dim=(-2, -1)) - x_norm
-            if task in ("cov", "xcov"):
-                rc = (c - cov_means) / 1.5
-                ll = ll - 0.5 * torch.sum(rc * rc, dim=-1)
-                # the lengthscale explosion penalty
-                ll = ll - torch.where(c[:, 2] > 5.0, torch.exp(70.0 * (c[:, 2] - 5.0)),
-                                      torch.zeros_like(c[:, 2]))
+            with span("prior"):
+                if task in ("x", "xcov"):
+                    r = (X - prior_means) / prior_std
+                    ll = ll - 0.5 * torch.sum(r * r, dim=(-2, -1)) - x_norm
+                if task in ("cov", "xcov"):
+                    rc = (c - cov_means) / 1.5
+                    ll = ll - 0.5 * torch.sum(rc * rc, dim=-1)
+                    # the lengthscale explosion penalty
+                    ll = ll - torch.where(c[:, 2] > 5.0, torch.exp(70.0 * (c[:, 2] - 5.0)),
+                                          torch.zeros_like(c[:, 2]))
             return (-ll).reshape(theta.shape[:-1])
 
         return loss

@@ -22,9 +22,10 @@ for all of them.
 The runner and the drivers mark their layers with spans of
 :mod:`gprf_torch.utils.profiling` (``fit``, ``init_eval``, ``dispatch``,
 ``step``, ``forward``, ``backward``, ``update``, ``overflow_check``,
-``sync``, ``grow``, ``checkpoint``), recorded only while a profiler
-records, and count each fit's evaluations, steps, accepted steps,
-dispatches, host reads, capacity growths and checkpoints.
+``sync``, ``grow``, ``checkpoint``, ``replica_health``), recorded only
+while a profiler records, and count each fit's evaluations, steps,
+accepted steps, dispatches, host reads, capacity growths, checkpoints and
+restarts of diverged replicas.
 """
 
 from __future__ import annotations
@@ -486,7 +487,9 @@ def _run_multistart(d, fused, theta0s, unpack_fn, write_covs, maxsec, max_iters,
     dispatch.  On an overflow every replica grows together and keeps its
     curvature memory (:class:`GrowingRunner`, restarted at ``x_prev``).
     ``counters.json`` is written beside ``finished``; its ``steps_accepted``
-    sums the replicas' accepted steps."""
+    sums the replicas' accepted steps, its ``replica_restarts`` the
+    restarts.  The health read and the restarts are the span
+    ``replica_health``."""
     dev, dtype = fused.device, fused.dtype
     theta0s = np.asarray(theta0s, dtype=np.float64)
     R, ntheta = theta0s.shape
@@ -520,8 +523,10 @@ def _run_multistart(d, fused, theta0s, unpack_fn, write_covs, maxsec, max_iters,
                     out = _host(torch.cat([values.double(), accepted.double()], dim=-1))
                     vals = out[:, :S]
                     fit_counts["steps_accepted"] += int(out[:, S:].sum())
-                    bad = _host(_replica_bad_mask(carry["x"], carry["v"]))
-                    carry, n_restarted = _sanitize_replicas(carry, bad)
+                    with span("replica_health"):
+                        bad = _host(_replica_bad_mask(carry["x"], carry["v"]))
+                        carry, n_restarted = _sanitize_replicas(carry, bad)
+                    fit_counts["replica_restarts"] += n_restarted
                     if n_restarted:
                         print("multistart: restarted %d diverged replica(s)" % n_restarted)
                     # a replica just restarted at its last finite point is checked

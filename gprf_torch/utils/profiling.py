@@ -24,7 +24,8 @@ opens each fit with :func:`fit`, which gives it a new id, zeroes
 :data:`fit_counts` and, through :meth:`Fit.write`, puts the fit's counters
 into its run directory as ``counters.json``.  Among them, the Schur
 objective counts the pair passes, their chunks and their zero-weight dummy
-edges where it picks its path.
+edges where it picks its path, and the multistart driver the replicas it
+restarted after they diverged (0 on a single-start fit).
 
 **The device trace.** :func:`device_trace` records the block with
 ``torch.profiler`` and writes a Chrome trace (Perfetto reads it) with the
@@ -43,7 +44,7 @@ import torch.autograd.profiler as _autograd_profiler
 
 FIT_COUNTERS = ("evaluations", "steps", "steps_accepted", "dispatches", "host_syncs",
                 "capacity_growths", "checkpoints", "pair_passes", "pair_chunks",
-                "pair_dummy_edges")
+                "pair_dummy_edges", "replica_restarts")
 SPAN_TRACK = "gprf_torch spans"
 
 

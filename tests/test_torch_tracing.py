@@ -184,3 +184,91 @@ def test_device_trace_shows_the_spans_over_the_ops(tmp_path):
     ops = [e for e in events if e.get("name") == "aten::argmin"]
     assert ops and all(block["ts"] <= e["ts"] and e["ts"] + e["dur"] <= block["ts"] + block["dur"]
                        for e in ops)
+
+
+# ---- the seismic engine and the multistart driver ---------------------------------
+
+def _seismic(n=120, seed=0):
+    """A seismic engine over 4 PD-tree blocks (n events around one arc,
+    every block pair an edge), dy 3, float64."""
+    from gprf_torch.model.fused_seismic import FusedSeismicGPRF
+    from gprf_torch.partition.pdtree import PDTree
+
+    rng = np.random.default_rng(seed)
+    X = np.column_stack([140.0 + rng.normal(0, 0.5, n), 10.0 + rng.normal(0, 0.5, n),
+                         rng.uniform(5.0, 50.0, n)])
+    tree = PDTree(X[:, :2], 40)
+    B = len(tree.leaf_idx())
+    edges = [(i, j) for i in range(B) for j in range(i)]
+    cov = GPCov.create([1.0], [40.0, 40.0], "lld", "matern32", **F64)
+    std = 20.0 * np.array([0.01, 0.01, 1.0])
+    return FusedSeismicGPRF(X, rng.standard_normal((n, 3)), tree, edges, X, std, cov, 0.1,
+                            task="xcov", **F64)
+
+
+def _seismic_thetas(fused, R):
+    theta = fused.theta0(fused.prior_means.numpy(), np.array([[0.1, 1.0, 40.0, 40.0]]))
+    rng = np.random.default_rng(1)
+    return np.stack([theta + rng.normal(size=theta.shape) * 0.01 * r for r in range(R)])
+
+
+def test_spans_of_a_seismic_evaluation():
+    fused = _seismic()
+    x = torch.as_tensor(_seismic_thetas(fused, 2))
+    recorded, parent = _recorded(lambda: lbfgs.value_and_grad(fused.loss_fn(), x))
+    seen = {s.name: p for s, p in zip(recorded, parent)}
+    assert set(seen) == {"forward", "backward", "pdtree_reblock", "unary_pass", "pair_pass",
+                         "prior"}
+    assert all(seen[k] == "forward" for k in ("pdtree_reblock", "unary_pass", "pair_pass",
+                                             "prior"))
+    assert [s.name for s in recorded].count("pdtree_reblock") == 1
+
+
+def test_replica_health_spans_a_multistart_dispatch(tmp_path):
+    fused = _seismic()
+    recorded, parent = _recorded(lambda: lbfgs.do_optimization_multistart_theta(
+        str(tmp_path), fused, _seismic_thetas(fused, 2), max_iters=2 * STEPS,
+        steps_per_dispatch=STEPS))
+    health = [s for s, p in zip(recorded, parent) if s.name == "replica_health"]
+    assert len(health) == 2
+    assert all(p == "dispatch" for s, p in zip(recorded, parent) if s.name == "replica_health")
+    # the health read is one of the dispatch's reads of the card
+    syncs = [s for s in recorded if s.name == "sync" and s.parent in {h.index for h in health}]
+    assert len(syncs) == 2
+
+
+def test_replica_restarts_are_counted(tmp_path):
+    """0 on a single-start fit and on healthy replicas; one where a replica's
+    value is planted non-finite once."""
+    _fit(tmp_path, _fused())
+    assert _counters(tmp_path)["replica_restarts"] == 0
+    fused = _seismic()
+    thetas = _seismic_thetas(fused, 3)
+    d = tmp_path / "healthy"
+    os.makedirs(d)
+    lbfgs.do_optimization_multistart_theta(str(d), fused, thetas, max_iters=2 * STEPS,
+                                           steps_per_dispatch=STEPS)
+    assert _counters(d)["replica_restarts"] == 0
+
+    make = fused.loss_fn
+    calls = []
+
+    def planted():
+        loss = make()
+
+        def inner(theta):
+            v = loss(theta)
+            calls.append(1)
+            # the first step, which the runner accepts whatever its value
+            if len(calls) == 2:
+                v = torch.where(torch.arange(v.shape[0]) == 1, float("nan"), v)
+            return v
+        return inner
+
+    fused.loss_fn = planted
+    d = tmp_path / "planted"
+    os.makedirs(d)
+    lbfgs.do_optimization_multistart_theta(str(d), fused, thetas, max_iters=2 * STEPS,
+                                           steps_per_dispatch=STEPS)
+    c = _counters(d)
+    assert c["replica_restarts"] == 1 and c["replicas"] == 3
