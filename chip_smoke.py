@@ -46,11 +46,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
              optimizer_state.npz, results.txt and finished must exist, the
              logged objective must be finite and end above where it began,
              the last row's mad below the first's, the trueX row finite,
-             K1-K3 launched and K4, K5 not.  Seconds of sampling, fitting
-             and analysis apart; device-busy ms of one loss+grad at these
-             shapes; K1, K2 and K3 each against its twin, timed, on the
-             inputs this path gives them ([100,136,136], [342,136,136] +
-             [342,136,50]).
+             K1-K3 and the SE kernel launched and K4, K5 not.  Seconds of
+             sampling, fitting and analysis apart; device-busy ms of one
+             loss+grad at these shapes; K1, K2 and K3 each against its twin,
+             timed, on the inputs this path gives them ([100,136,136],
+             [342,136,136] + [342,136,50]); the SE kernel against its twin
+             on this path's unary and pair points, forward and backward,
+             timed beside the twin and its bound (``check_se_kernel``).
 7. predict - ``--analyze --analyze_full`` on the cli phase's run directory
              (no new fit), counters reset before and read after: the six
              predictive columns of results.txt finite and non-zero on every
@@ -67,8 +69,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
 8. rpc     - the command line's flagship with ``--rpc_blocksize 200`` in
              place of ``--nblocks 100`` (device engine, 100 iterations),
              counters reset before and read after: the files, a rising
-             objective, a falling mad, a finite trueX row, K1-K3 launched
-             and K4, K5 not; B, E and m as the engine reports them against
+             objective, a falling mad, a finite trueX row, K1-K3 and the SE
+             kernel launched and K4, K5 not; B, E and m as the engine reports them against
              the host's cluster_rpc (64 blocks, m = 160); the float32 median
              replay on the card against the float64 host replay at X_obs and
              the final X (points in another block counted, at most
@@ -96,7 +98,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
              with ``--engine device --multistart 4``, 100 iterations,
              counters reset before and read after: the files with
              multistart.txt, a rising objective, a falling mean location
-             error, K1-K3 launched and K4, K5 not, and B, E and m as the
+             error, K1-K3 launched and K4, K5 and the SE kernel (the
+             Matern-3/2 great-circle kernel is not its) not, and B, E and m as the
              engine reports them.  Seconds of sampling, fitting and
              analysis.  Then K1, K2 and K3 against their twins on the
              inputs the seismic loss gives them at R = 1 and R = 4
@@ -110,7 +113,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
              0.021213, obs_std 0.007071, task x) on the Vecchia draw
              (GPRF_SAMPLER=vecchia), device engine, EIGHTY_ITERS iterations,
              counters reset before and read after: the cli phase's checks,
-             K1-K3 launched and K4, K5 not, row 0's and the trueX row's
+             K1-K3 and the SE kernel launched and K4, K5 not, row 0's and the trueX row's
              objective beside the JAX package's artifact
              (docs/runs/gprf80k_device/results.txt); the launches of one
              forward and one loss+grad (the pair pass in chunks of 64, each
@@ -121,7 +124,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
              against that (EIGHTY_F32_RTOL, EIGHTY_F32_MIN_COSINE); one
              GPRF.llgrad of the host engine against the device engine's loss
              less its X prior; K1, K2 and K3 against their twins on every leaf
-             shape of this path; peak memory, device-busy ms and launches of one
+             shape of this path, and the SE kernel on its unary and pair
+             points as at the cli phase; peak memory, device-busy ms and launches of one
              loss+grad chunked by 64 and unchunked.
 16. baselines - the GPLVM baselines through ``gprf_torch.cli.gprfopt.main``
              on the host engine: the truegp suite's data (the cli phase's
@@ -304,7 +308,7 @@ SMALL_BASELINE_FLAGS = ["--ntrain", "2000", "--ntest", "100", "--nblocks", "1", 
 REFINE_F32_ITERS, REFINE_ITERS, SEISMIC_REFINE_ITERS = 40, 20, 10
 # the tail's last row against the float32 loop's last: the tail computes in
 # float64 what the loop computed in float32 (1e-5 is the routes' float32
-# loss agreement, RTOL_LOSS), and it starts at the loop's pending proposal
+# loss agreement, RTOL_LOSS), and it starts at the loop's last accepted point
 REFINE_RTOL = 1e-5
 # the multistart check: replicas and steps on the bench's problem.  Two float32
 # runs whose reductions reassociate part by ~1e-7 at the first steps, and this
@@ -430,6 +434,8 @@ def recorded_inputs(holder, evaluate, every_shape=False):
     complements [E, m, m], their right-hand sides [E, m, dy] and active
     counts [E]; K3 the pair factors [E, m, m] that K2's backward inverts.
     K5 factors K1's blocks on its route and K4 takes K2's inputs on its.
+    The SE kernel (``se_kernel``) its points, masks and hyperparameters,
+    block mode in the unary pass and pair mode in the pair pass.
     name -> the inputs of the kernel's last call, or with ``every_shape``
     name -> the inputs of its first call at each distinct shape (a split
     path runs its leaves at several)."""
@@ -441,11 +447,12 @@ def recorded_inputs(holder, evaluate, every_shape=False):
 
     def recorded(name, fn):
         def f(*args):
-            shapes = tuple(tuple(a.shape) for a in args)
+            shapes = tuple(None if a is None else tuple(a.shape) for a in args)
             calls = seen.setdefault(name, {})
             if shapes not in calls or not every_shape:
                 calls.pop(shapes, None)  # last call last
-                calls[shapes] = tuple(a.detach().contiguous() for a in args)
+                calls[shapes] = tuple(None if a is None else a.detach().contiguous()
+                                      for a in args)
             return fn(*args)
         return f
 
@@ -664,6 +671,67 @@ def check_path_kernels(what, inputs, cases, torch):
         args = inputs[name]
         out[name] = dict(shape=list(args[0].shape) + [a.shape[-1] for a in args[1:2]],
                          **compare(cases[name], args, torch, what=f"{what}: "))
+    return out
+
+
+def se_kernel_bytes(args, grads=False):
+    """The bytes one call of the SE kernel must move: the points, masks and
+    hyperparameters read once (block mode's one point set once), and K
+    written once (the forward) or G read once and the points' gradients
+    written once (the backward)."""
+    Xi, Xj, mi, mj, sv, ls, nv = args
+    ins = [Xi, mi, sv, ls] + ([nv] if nv is not None else [Xj, mj])
+    R, N, m, dx = Xi.shape
+    points = sum(a.numel() * a.element_size() for a in ins)
+    grad_points = (1 if nv is not None else 2) * Xi.numel() * Xi.element_size()
+    return points + R * N * m * m * Xi.element_size() + (grad_points if grads else 0)
+
+
+def check_se_kernel(what, calls, gen, torch):
+    """The SE kernel against its twin on each call a path recorded
+    (``recorded_inputs(..., every_shape=True)["se_kernel"]``), float32 on
+    both: the forward's normwise rel err and each gradient's under a seeded
+    cotangent that is not symmetric; the device ms of the kernel's forward
+    and of its backward (the backward kernel and the sum of its partials),
+    the twin's of each, and each one's bound, the bytes it must move over
+    3.35 TB/s."""
+    from gprf_torch.ops import se_kernel
+
+    out = []
+    for args in calls:
+        shape = list(args[0].shape[:2]) + [args[0].shape[2]] * 2
+        mode = "pair" if args[6] is None else "block"
+        K = se_kernel.se_matrix(*args)
+        K_twin = se_kernel.se_matrix_plain(*args)
+        G = torch.randn(K.shape, generator=gen, device=K.device)
+        grads = se_kernel.se_grads(G, *args)
+        grads_twin = se_kernel.se_grads_plain(G, *args)
+        torch.cuda.synchronize()
+        fwd = rel_err(K, K_twin)
+        bwd = max(rel_err(a, b) for a, b in zip(grads, grads_twin) if a is not None)
+        del K, K_twin, grads, grads_twin
+        r = dict(mode=mode, shape=shape, fwd_rel_err=fwd, bwd_rel_err=bwd,
+                 ms=median_ms(lambda: se_kernel.se_matrix(*args), torch),
+                 plain_ms=median_ms(lambda: se_kernel.se_matrix_plain(*args), torch, reps=5),
+                 bwd_ms=median_ms(lambda: se_kernel.se_grads(G, *args), torch),
+                 bwd_plain_ms=median_ms(lambda: se_kernel.se_grads_plain(G, *args), torch,
+                                        reps=5),
+                 bound_ms=se_kernel_bytes(args) / PEAK_BYTES_PER_S * 1e3,
+                 bwd_bound_ms=se_kernel_bytes(args, grads=True) / PEAK_BYTES_PER_S * 1e3)
+        r.update(share=r["bound_ms"] / r["ms"], bwd_share=r["bwd_bound_ms"] / r["bwd_ms"])
+        log(f"{what}: se_kernel {mode} {shape}: fwd rel err {fwd:.3e}, bwd rel err {bwd:.3e}; "
+            f"forward {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, {100 * r['share']:.1f}%) vs "
+            f"twin {r['plain_ms']:.4f}; backward {r['bwd_ms']:.4f} ms (bound "
+            f"{r['bwd_bound_ms']:.4f}, {100 * r['bwd_share']:.1f}%) vs twin "
+            f"{r['bwd_plain_ms']:.4f}")
+        if not (fwd <= RTOL_FWD and bwd <= RTOL_BWD):
+            raise AssertionError(f"se_kernel {mode} {shape} disagrees with its twin: fwd "
+                                 f"{fwd:.3e} (limit {RTOL_FWD}), bwd {bwd:.3e} (limit {RTOL_BWD})")
+        out.append(r)
+        del G
+    if sorted(r["mode"] for r in out) != ["block", "pair"]:
+        raise AssertionError(f"{what}: se_kernel recorded {[r['mode'] for r in out]}; want one "
+                             "block call (the unary pass) and one pair call")
     return out
 
 
@@ -912,8 +980,8 @@ def run_cli(base, cases, torch):
     if not (values[-1] > values[0] and mad_last < mad_first and np.isfinite(true_row["mll"])):
         raise AssertionError(f"cli run: objective {values[0]} -> {values[-1]}, mad {mad_first} "
                              f"-> {mad_last}, trueX objective {true_row['mll']}")
-    check_launches("the cli run", launches, ("chol_inv", "mvn_ll", "tri_inv"),
-                   ("mvn_ll_inv", "cholesky"))
+    check_launches("the cli run", launches, ("chol_inv", "mvn_ll", "tri_inv", "se_kernel",
+                                             "se_kernel_bwd"), ("mvn_ll_inv", "cholesky"))
 
     # the engine the run used, rebuilt on the cached data: its shapes, and
     # the device time of one loss+grad at them
@@ -934,7 +1002,10 @@ def run_cli(base, cases, torch):
                                  flagship_inputs(fused, data.X_obs.reshape(-1), torch), cases, torch)
     if kernels["mvn_ll"]["shape"] != [E, m, m, DY] or kernels["tri_inv"]["shape"] != [E, m, m]:
         raise AssertionError(f"cli path kernels were held at {kernels['mvn_ll']['shape']}")
-    return dict(kernels=kernels, dir=d, dir_files=files, iterations=len(steps), objective=[float(values[0]),
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    se = check_se_kernel(f"cli path, E={E}, m={m}", recorded_inputs(
+        fused, lambda: fused.loss_fn()(x0), every_shape=True)["se_kernel"], gen, torch)
+    return dict(kernels=kernels, se_kernel=se, dir=d, dir_files=files, iterations=len(steps), objective=[float(values[0]),
                 float(values[-1])], true_x_objective=float(true_row["mll"]),
                 mad=[mad_first, mad_last], seconds=seconds, launches=launches, edges=E, m=m,
                 device_busy_ms=busy, device_launches=n_launch, eval_ms=eval_ms), data
@@ -1266,8 +1337,8 @@ def run_rpc(base, cases, torch):
     if not (values[-1] > values[0] and mad_last < mad_first and np.isfinite(true_row["mll"])):
         raise AssertionError(f"rpc run: objective {values[0]} -> {values[-1]}, mad {mad_first} "
                              f"-> {mad_last}, trueX objective {true_row['mll']}")
-    check_launches("the rpc run", launches, ("chol_inv", "mvn_ll", "tri_inv"),
-                   ("mvn_ll_inv", "cholesky"))
+    check_launches("the rpc run", launches, ("chol_inv", "mvn_ll", "tri_inv", "se_kernel",
+                                             "se_kernel_bwd"), ("mvn_ll_inv", "cholesky"))
 
     # the host's partition of the same data: B, E and m against the engine's
     data = sample_data(n=10500, ntrain=10000, lscale=0.06, obs_std=0.02, yd=DY, seed=0,
@@ -1524,7 +1595,7 @@ def run_seismic_device(base, cases, torch):
         raise AssertionError(f"seismic run: steps {steps[0]}..{steps[-1]}, objective "
                              f"{values[0]} -> {values[-1]}, mean error {mad_first} -> {mad_last}")
     check_launches("the seismic run", launches, ("chol_inv", "mvn_ll", "tri_inv"),
-                   ("mvn_ll_inv", "cholesky"))
+                   ("mvn_ll_inv", "cholesky", "se_kernel", "se_kernel_bwd"))
 
     # the engine the run used, rebuilt on the cached data: K1-K3 against
     # their twins on the seismic loss's inputs at one replica and at all
@@ -1585,7 +1656,7 @@ def run_seismic_host(base, data, torch):
                                                       and values.max() > values[0]):
         raise AssertionError(f"seismic host engine: files {files}, objective {values}")
     check_launches("the seismic host run", launches, ("chol_inv", "mvn_ll", "tri_inv"),
-                   ("mvn_ll_inv", "cholesky"))
+                   ("mvn_ll_inv", "cholesky", "se_kernel", "se_kernel_bwd"))
     return dict(evaluations=len(steps), ms_per_evaluation=ms,
                 objective=[float(values[0]), float(values.max())], launches=launches,
                 seconds={k: info[k] for k in ("sample_s", "fit_s", "analyze_s")})
@@ -1735,8 +1806,8 @@ def run_eighty(base, cases, torch):
     if not (values[-1] > values[0] and mad_last < mad_first and np.isfinite(true_row["mll"])):
         raise AssertionError(f"80k run: objective {values[0]} -> {values[-1]}, mad {mad_first} "
                              f"-> {mad_last}, trueX objective {true_row['mll']}")
-    check_launches("the 80k run", launches, ("chol_inv", "mvn_ll", "tri_inv"),
-                   ("mvn_ll_inv", "cholesky"))
+    check_launches("the 80k run", launches, ("chol_inv", "mvn_ll", "tri_inv", "se_kernel",
+                                             "se_kernel_bwd"), ("mvn_ll_inv", "cholesky"))
 
     # the engine at the fit's final X (its capacity from the data there)
     X_final = np.load(os.path.join(d, "step_%05d_X.npy" % (EIGHTY_ITERS - 1)))
@@ -1875,6 +1946,8 @@ def run_eighty(base, cases, torch):
         kernels[name] = [dict(shape=list(args[0].shape) + [a.shape[-1] for a in args[1:2]],
                               **compare(cases[name], args, torch, what=f"80k path, m={m}: "))
                          for args in inputs[name]]
+    se = check_se_kernel(f"80k path, m={m}", inputs["se_kernel"],
+                         torch.Generator(device="cuda").manual_seed(80), torch)
     del inputs
 
     # one loss+grad chunked by 64 and whole (the rule's): peak memory, device busy
@@ -1901,7 +1974,7 @@ def run_eighty(base, cases, torch):
             f" above the resident), device busy {busy:.3f} ms ({n_launch:.0f} launches, of them "
             f"K1-K3 {ours:.3f} ms), host clock {eval_ms:.3f} ms (median of 4)")
     fused.pair_chunk = None
-    return dict(kernels=kernels, dir=d, blocks=B, edges=E, m_start=m_start, m_end=m_end, m_final=m,
+    return dict(kernels=kernels, se_kernel=se, dir=d, blocks=B, edges=E, m_start=m_start, m_end=m_end, m_final=m,
                 iterations=len(steps), ms_per_iteration=ms_iter,
                 objective=[float(values[0]), float(values[-1])],
                 true_x_objective=float(true_row["mll"]), jax_artifact=list(JAX_EIGHTY_LL),

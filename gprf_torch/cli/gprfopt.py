@@ -15,8 +15,9 @@ of results.txt; under an RPC partition it raises IndexError, as the
 reference's does), ``--multistart`` (device engine; the host engine ignores
 it, as the reference's does), ``--refine_iters`` (device engine: the
 float64 tail of :func:`~gprf_torch.optim.lbfgs.refine_f64`, on the run's
-device) and the GPLVM baselines ``--gplvm_type sparse|titsias|bayesian|basic``
-with ``--num_inducing`` (host engine, :mod:`gprf_torch.model.sgplvm`).
+device, from the loop's last accepted point) and the GPLVM baselines
+``--gplvm_type sparse|titsias|bayesian|basic`` with ``--num_inducing`` (host
+engine, :mod:`gprf_torch.model.sgplvm`).
 :func:`check_options` refuses what no engine serves.
 """
 
@@ -39,7 +40,8 @@ from gprf_torch.ops.mvn import KERNEL_OPS, LINALG_OPS
 from gprf_torch.optim.driver import do_optimization, load_log
 from gprf_torch.optim.lbfgs import (do_optimization_fused, do_optimization_fused_theta,
                                     do_optimization_multistart,
-                                    do_optimization_multistart_theta, refine_f64)
+                                    do_optimization_multistart_theta, last_accepted,
+                                    refine_f64)
 from gprf_torch.partition.grid import grid_centers
 from gprf_torch.utils.device import resolve_device
 from gprf_torch.utils.io import mkdir_p
@@ -170,15 +172,20 @@ def do_run(d, lscale, n, ntrain, nblocks, yd, seed=0, method="l-bfgs-b", obs_std
                         d, fused, np.stack(thetas), **loop)
                 print("multistart: best replica %d of %d (final objectives %s)"
                       % (int(np.argmin(final_v)), multistart, final_v))
-            elif task == "x":
-                x_final = do_optimization_fused(d, fused, X0, **loop)
             else:
-                x_final = do_optimization_fused_theta(d, fused, fused.theta0(), **loop)
+                if task == "x":
+                    do_optimization_fused(d, fused, X0, **loop)
+                else:
+                    do_optimization_fused_theta(d, fused, fused.theta0(), **loop)
+                # the last accepted point, where the multistart winner's is
+                # x_final already: the driver returns its pending proposal
+                x_final = last_accepted(d)
             print("device engine: B = %d blocks, E = %d edges, final block capacity m = %d"
                   % (fused.n_blocks, len(gprf.neighbors), fused.m))
             if refine_iters > 0:
-                # the float64 tail over the same partition, edges, task and
-                # start, at the capacity the float32 loop ended at
+                # the float64 tail over the same partition, edges and task,
+                # from the loop's last accepted point, at the capacity the
+                # float32 loop ended at
                 it0 = int(load_log(d)[0][-1]) + 1
                 refine_f64(d, lambda dt: make_fused(dt, LINALG_OPS, fused.m), x_final, it0,
                            iters=refine_iters)

@@ -13,7 +13,8 @@ catalog ("true") locations in ``results.txt``.  The flags are the
 reference's, plus ``--device`` (default ``cuda``; without a CUDA device the
 default raises, and only ``--device cpu`` runs on the CPU).
 ``--refine_iters`` follows the device engine with the float64 tail of
-:func:`~gprf_torch.optim.lbfgs.refine_f64` on the run's device.
+:func:`~gprf_torch.optim.lbfgs.refine_f64` on the run's device, from the
+loop's last accepted point.
 ``--sparse`` runs the host engine over the truncated-support sparse llgrad
 (host float64, :mod:`gprf_torch.model.sparse_llgrad`); with ``--engine
 device``, which has no sparse path, it raises before anything runs (the
@@ -36,7 +37,8 @@ from gprf_torch.model.gprf import GPRF
 from gprf_torch.optim.driver import do_optimization_seismic, load_log
 from gprf_torch.ops.mvn import KERNEL_OPS, LINALG_OPS
 from gprf_torch.optim.lbfgs import (do_optimization_fused_theta,
-                                    do_optimization_multistart_theta, refine_f64)
+                                    do_optimization_multistart_theta, last_accepted,
+                                    refine_f64)
 from gprf_torch.optim.priors import seismic_cov_prior
 from gprf_torch.partition.pdtree import PDTree, pdtree_cluster, wrap_lon
 from gprf_torch.utils.device import resolve_device
@@ -257,7 +259,9 @@ def do_run(args, *, device: torch.device | str, dtype: torch.dtype = torch.float
                 print("multistart: best replica %d of %d (final objectives %s)"
                       % (int(np.argmin(final_v)), args.multistart, final_v))
             else:
-                theta_final = do_optimization_fused_theta(d, fused, theta0, **loop)
+                do_optimization_fused_theta(d, fused, theta0, **loop)
+                # the last accepted point, not the driver's pending proposal
+                theta_final = last_accepted(d)
             info["m_end"] = fused.m
             print("device engine: B = %d blocks, E = %d edges, block capacity m = %d -> %d"
                   % (info["blocks"], info["edges"], info["m"], fused.m))

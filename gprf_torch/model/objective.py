@@ -29,6 +29,14 @@ Two routes of the reference run other kernels; each is an explicit option
 Gradients with respect to X, the kernel hyperparameters and the noise
 variance come from autograd through the kernels' analytic backward passes.
 
+The kernel matrices of both passes, where the covariance is the SE profile
+over the scaled euclidean distance at dx < 16, come from ``ops.se_kernel``
+(:mod:`gprf_torch.ops.se_kernel`): one kernel builds the masked, padded
+matrices from the points, and its backward reduces the cotangent to the
+points and hyperparameters, where eager PyTorch wrote and kept every step
+of the chain.  Every other covariance (the seismic great-circle
+Matern-3/2) composes them from ``cross_kernel_matrix``.
+
 The joint form :func:`gprf_ll` is the reference's parity oracle: each
 pair is one 2m-wide masked Gaussian density over the stacked blocks,
 factored by ``torch.linalg`` (the reference factors it with XLA's
@@ -62,6 +70,7 @@ from gprf_torch.kernels.covfn import cross_kernel_matrix
 from gprf_torch.kernels.gpcov import GPCov
 from gprf_torch.linalg.doubling import batched_tri_inv_doubling
 from gprf_torch.linalg.masked import masked_gaussian_ll, pad_kernel_matrix
+from gprf_torch.ops import se_kernel
 from gprf_torch.ops.mvn import KERNEL_OPS, Ops
 from gprf_torch.ops.split_mvn import chol_inv_split, cholesky_split, mvn_ll_split
 from gprf_torch.utils.profiling import fit_counts, span
@@ -69,12 +78,15 @@ from gprf_torch.utils.profiling import fit_counts, span
 _LOG_2PI = math.log(2.0 * math.pi)
 
 # [m, m] buffers an edge that the whole pair pass holds at its peak, per
-# replica, from what its backward keeps: the kernel's [m, m, dx] difference
-# (dx = 2) and exponential, the mask product, the masked Kij, the gathered
-# W_i, B and S, mvn_ll_split's blocks and factors (about 2), and the
-# backward's gradients of those.  Above what was resident, with the unary
-# pass in it, an H100 read 14.5 buffers an edge at m = 896 over 342 edges at
-# R = 1 in float32 (15.9 GB), 14.4 at R = 4 and 15.2 in float64 on LINALG_OPS.
+# replica, from what its backward keeps: the masked Kij, the gathered W_i,
+# B and S, mvn_ll_split's blocks and factors (about 2), and the backward's
+# gradients of those.  Above what was resident, with the unary pass in it,
+# an H100 read 9.3 buffers an edge at m = 896 over 342 edges at R = 1 in
+# float32 (10.2 GB), 9.2 at R = 4 and 10.1 in float64 on LINALG_OPS, since
+# the SE kernel keeps no intermediate of the kernel matrices.  16 stays: a
+# covariance the kernel does not serve composes them eagerly, and that path
+# held 14.5, 14.4 and 15.2; and no choice would change at half an H100, where
+# R = 4 at 80k needs two chunks at any count above 9.7.
 PAIR_BUFFERS = 16
 # the reference's rule, kept where there is no card: 64 edges past m = 512
 REFERENCE_PAIR_CHUNK = 64
@@ -165,20 +177,41 @@ def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
     ``acc_dtype`` (default: X's dtype) accumulates the scalar tails: the
     per-block quadratic forms, log-determinants and the weighted block
     sums.  ``mvn_inv`` and ``unary_doubling`` pick the routes of the module
-    docstring.  ``pair_chunk`` runs the pair pass in chunks of that many
-    edges (module docstring).  The running fit's ``pair_passes``,
-    ``pair_chunks`` and ``pair_dummy_edges`` count the path taken."""
+    docstring, and the covariance the kernel matrices' path (``ops.se_kernel``
+    where :func:`gprf_torch.ops.se_kernel.serves` it).  ``pair_chunk`` runs
+    the pair pass in chunks of that many edges (module docstring).  The
+    running fit's ``pair_passes``, ``pair_chunks`` and ``pair_dummy_edges``
+    count the path taken."""
     dtype = X.dtype
     acc = dtype if acc_dtype is None else acc_dtype
     R, B, m = assignment.shape
     dy = Y.shape[-1]
     maskf = mask.to(dtype)
-    eye = torch.eye(m, dtype=dtype, device=X.device)
-    # hyperparameters broadcast against the [R, B, m, .] block tensors
-    cov = GPCov(wfn_params=cov.wfn_params.reshape(R, 1, 1, 1),
-                dfn_params=cov.dfn_params.reshape(R, 1, 1, -1),
-                dfn_str=cov.dfn_str, wfn_str=cov.wfn_str)
-    noise_var = noise_var.reshape(R, 1, 1, 1)
+    if se_kernel.serves(cov.dfn_str, cov.wfn_str, X.shape[-1]):
+        # one kernel a pass builds the masked matrices from the points; the
+        # hyperparameters made contiguous once for both passes
+        sv = cov.wfn_params.reshape(R).contiguous()
+        ls = cov.dfn_params.reshape(R, -1).contiguous()
+        nv = noise_var.reshape(R).contiguous()
+
+        def unary_matrices(Xb):
+            return ops.se_kernel(Xb, Xb, maskf, maskf, sv, ls, nv)
+
+        def pair_matrices(Xi, Xj, mi, mj):
+            return ops.se_kernel(Xi, Xj, mi, mj, sv, ls, None)
+    else:
+        eye = torch.eye(m, dtype=dtype, device=X.device)
+        # hyperparameters broadcast against the [R, B, m, .] block tensors
+        cov = GPCov(wfn_params=cov.wfn_params.reshape(R, 1, 1, 1),
+                    dfn_params=cov.dfn_params.reshape(R, 1, 1, -1),
+                    dfn_str=cov.dfn_str, wfn_str=cov.wfn_str)
+        noise_var = noise_var.reshape(R, 1, 1, 1)
+
+        def unary_matrices(Xb):
+            return pad_kernel_matrix(cross_kernel_matrix(cov, Xb, Xb) + noise_var * eye, mask)
+
+        def pair_matrices(Xi, Xj, mi, mj):
+            return cross_kernel_matrix(cov, Xi, Xj) * (mi[..., :, None] * mj[..., None, :])
 
     # ---- unary pass: K1 over every block (K5 + doubling on that route)
     with span("unary_pass"):
@@ -191,7 +224,7 @@ def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
         if R > 1:  # replica r's points sit at rows r n .. r n + n - 1 of the flat X
             flat = flat + torch.arange(R, device=X.device).reshape(R, 1, 1) * n
         Xb = X.reshape(R * n, -1).index_select(0, flat.reshape(-1)).reshape(R, B, m, X.shape[-1])
-        Kp = pad_kernel_matrix(cross_kernel_matrix(cov, Xb, Xb) + noise_var * eye, mask)
+        Kp = unary_matrices(Xb)
         Ym = Y[assignment.long()] * maskf[..., None]
         if unary_doubling:
             Ls = cholesky_split(Kp.reshape(R * B, m, m), ops=ops)
@@ -216,8 +249,7 @@ def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
             ei = edges_c[:, 0]
             ej = edges_c[:, 1]
             Ec = edges_c.shape[0]
-            Kij = cross_kernel_matrix(cov, Xb[:, ei], Xb[:, ej])
-            Kij = Kij * (maskf[:, ei][..., :, None] * maskf[:, ej][..., None, :])
+            Kij = pair_matrices(Xb[:, ei], Xb[:, ej], maskf[:, ei], maskf[:, ej])
             Bm = Ws[:, ei] @ Kij
             # padded rows of Kp[ej] are identity and the matching Bm columns are
             # zero, so S stays padded-masked

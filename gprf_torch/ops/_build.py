@@ -7,8 +7,10 @@ compiled by its own ``nvcc`` process, all started together, and the objects
 are then linked.  The library is built at first use into
 ``gprf_torch/csrc/build/<hash>/``, keyed on a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads.  Nothing
-here runs at import: this module is imported on machines with no CUDA
-toolkit.
+here builds at import: this module is imported on machines with no CUDA
+toolkit.  It also holds what every kernel wrapper shares: the launch
+counters, the device rule (the twin on the CPU, the kernel on one CUDA
+device) and the checks of a kernel's operands.
 """
 
 from __future__ import annotations
@@ -22,6 +24,10 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
+
+from gprf_torch.utils.profiling import counter_group
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC / "build"
@@ -41,11 +47,47 @@ SIGNATURES = {
     "gprf_tri_inv": (_P, _P, _I, _I, _P),
     "gprf_mvn_ll_inv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gprf_cholesky": (_P, _P, _I, _I, _P),
+    "gprf_se_kernel": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "gprf_se_kernel_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "gprf_chol_inv_ctas_per_sm": (_I,),
     "gprf_tri_inv_ctas_per_sm": (_I,),
     "gprf_mvn_ctas_per_sm": (_I, _I),
     "gprf_mvn_inv_ctas_per_sm": (_I, _I),
 }
+
+
+# Kernel launches per wrapper since the last reset: the "launches" group of
+# the port's counters (gprf_torch.utils.profiling).  Only a launch of the
+# CUDA kernel counts; the twin never does.
+launch_counts = counter_group("launches", ("chol_inv", "mvn_ll", "tri_inv", "mvn_ll_inv",
+                                           "cholesky", "se_kernel", "se_kernel_bwd"))
+
+
+def on_cpu(*ts) -> bool:
+    """True where every tensor is on the CPU (the wrapper runs its twin),
+    False where all are on one CUDA device (it launches its kernel); any
+    other mix raises."""
+    devs = {t.device.type for t in ts}
+    if devs == {"cpu"}:
+        return True
+    if devs != {"cuda"} or len({t.device for t in ts}) != 1:
+        raise ValueError(f"inputs must all be on the CPU or on one CUDA device, got {devs}")
+    return False
+
+
+def check(name, t, shape):
+    """Raise unless ``t`` is a contiguous float32 tensor of ``shape``."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: the CUDA kernel takes a contiguous tensor")
+
+
+def stream(t):
+    """The handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 @dataclasses.dataclass(frozen=True)

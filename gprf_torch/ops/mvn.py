@@ -8,7 +8,10 @@ PyTorch twins and analytic backward passes.
     K5  cholesky(K)                -> L                          csrc/chol_inv.cu
 
 K1-K3 carry the default route of the objective; K4 the MVN+inverse route
-and K5 the unary-doubling route (:mod:`gprf_torch.model.objective`).
+and K5 the unary-doubling route (:mod:`gprf_torch.model.objective`).  The
+objective's SE kernel matrices have a kernel of their own, which replaces
+no TPU kernel (:mod:`gprf_torch.ops.se_kernel`); :class:`Ops` carries it
+beside these five.
 
 Each wrapper runs its hand-written CUDA kernel on a CUDA tensor and its
 plain twin (``*_plain``) on a CPU tensor; any other input raises.  The
@@ -36,7 +39,11 @@ import torch
 
 from gprf_torch.linalg.masked import cholesky_nan
 from gprf_torch.ops import _build
-from gprf_torch.utils.profiling import counter_group
+from gprf_torch.ops._build import check as _check
+from gprf_torch.ops._build import launch_counts
+from gprf_torch.ops._build import on_cpu as _on_cpu
+from gprf_torch.ops._build import stream as _stream
+from gprf_torch.ops.se_kernel import se_kernel, se_kernel_plain
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -110,13 +117,6 @@ def mvn_inv_supported(m: int, dy: int) -> bool:
     return dy <= MAX_DY_MVN and m <= mvn_max_m(dy)
 
 
-# Kernel launches per wrapper since the last reset: the "launches" group of
-# the port's counters (gprf_torch.utils.profiling).  Only a launch of the
-# CUDA kernel counts; the twin never does.
-launch_counts = counter_group("launches", ("chol_inv", "mvn_ll", "tri_inv", "mvn_ll_inv",
-                                           "cholesky"))
-
-
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
@@ -165,24 +165,6 @@ def mvn_ll_inv_plain(Kp, Ym, n_active):
 
 
 # ---- kernel wrappers ---------------------------------------------------------
-
-
-def _on_cpu(*ts) -> bool:
-    devs = {t.device.type for t in ts}
-    if devs == {"cpu"}:
-        return True
-    if devs != {"cuda"} or len({t.device for t in ts}) != 1:
-        raise ValueError(f"inputs must all be on the CPU or on one CUDA device, got {devs}")
-    return False
-
-
-def _check(name, t, shape):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: the CUDA kernel takes a contiguous tensor")
 
 
 def _square_batch(name, A):
@@ -466,17 +448,18 @@ class Cholesky(torch.autograd.Function):
 
 
 class Ops(NamedTuple):
-    """The leaf primitives a composition runs on.  ``mvn_ll_inv`` and
-    ``cholesky`` default to the kernels, so a caller may name only the first
-    three.  ``leaf_caps``: whether the leaves have the kernels'
-    shared-memory caps, so that :mod:`gprf_torch.ops.split_mvn` splits a
-    wider block; leaves without caps take any width whole."""
+    """The leaf primitives a composition runs on.  ``mvn_ll_inv``,
+    ``cholesky`` and ``se_kernel`` default to the kernels, so a caller may
+    name only the first three.  ``leaf_caps``: whether the leaves have the
+    kernels' shared-memory caps, so that :mod:`gprf_torch.ops.split_mvn`
+    splits a wider block; leaves without caps take any width whole."""
 
     chol_inv: Callable  # K -> (L, W)
     mvn_ll: Callable  # (Kp, Ym, n_active) -> ll
     tri_inv: Callable  # L -> W
     mvn_ll_inv: Callable = MvnLLInv.apply  # (Kp, Ym, n_active) -> ll
     cholesky: Callable = Cholesky.apply  # K -> L
+    se_kernel: Callable = se_kernel  # (Xi, Xj, mi, mj, sv, ls, nv) -> K (ops/se_kernel.py)
     leaf_caps: bool = True
 
     def map_leaves(self, fn):
@@ -492,6 +475,7 @@ KERNEL_OPS = Ops(
     tri_inv=TriInv.apply,
     mvn_ll_inv=MvnLLInv.apply,
     cholesky=Cholesky.apply,
+    se_kernel=se_kernel,
 )
 PLAIN_OPS = Ops(
     chol_inv=chol_inv_plain,
@@ -499,6 +483,7 @@ PLAIN_OPS = Ops(
     tri_inv=tri_inv_plain,
     mvn_ll_inv=lambda Kp, Ym, n_active: mvn_ll_inv_plain(Kp, Ym, n_active)[0],
     cholesky=cholesky_plain,
+    se_kernel=se_kernel_plain,
 )
 
 
@@ -539,5 +524,6 @@ LINALG_OPS = Ops(
     tri_inv=tri_inv_plain,
     mvn_ll_inv=lambda Kp, Ym, n_active: _mvn_plain(Kp, Ym, n_active, cholesky_checked)[0],
     cholesky=cholesky_checked,
+    se_kernel=se_kernel_plain,
     leaf_caps=False,
 )

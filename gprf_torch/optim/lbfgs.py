@@ -274,6 +274,16 @@ def load_optimizer_state(d, device: torch.device | str):
     return carry, it
 
 
+def last_accepted(d):
+    """The last point a single-start run accepted, whose value its log's
+    last row shows: ``x_prev`` of the optimizer state its driver saved in
+    ``d``, float64 on the host.  A float64 tail starts here, not at the
+    point the driver returns: that is its next proposal, never evaluated,
+    and it may lie below the loop's last row."""
+    with np.load(os.path.join(d, "optimizer_state.npz")) as z:
+        return z["x_prev"].astype(np.float64)
+
+
 def _host(t):
     """``t`` as a numpy array on the host: a read that waits for the card
     (a ``sync`` span, counted in ``host_syncs``)."""

@@ -18,7 +18,8 @@ nothing to the profiler's host or device timelines.
 
 **Counters.** :data:`counters` holds groups of host integers, always on,
 that nothing fills by reading a device tensor: ``counters["launches"]``
-(``gprf_torch.ops.mvn.launch_counts``, kernel launches per wrapper) and
+(``gprf_torch.ops._build.launch_counts``, kernel launches per wrapper:
+K1-K5, and the SE kernel matrices' ``se_kernel`` and ``se_kernel_bwd``) and
 ``counters["fit"]`` (:data:`fit_counts`, the running fit's).  A driver
 opens each fit with :func:`fit`, which gives it a new id, zeroes
 :data:`fit_counts` and, through :meth:`Fit.write`, puts the fit's counters

@@ -18,7 +18,7 @@ import torch
 
 import gprf_torch  # noqa: F401  (precision pins)
 from gprf_torch.linalg.doubling import batched_tri_inv_doubling
-from gprf_torch.ops import mvn
+from gprf_torch.ops import mvn, se_kernel
 from gprf_torch.ops.split_mvn import chol_inv_split, cholesky_split, mvn_ll_split, tri_inv_split
 
 pytestmark = pytest.mark.gpu
@@ -496,8 +496,11 @@ def test_empty_batch_launches_nothing(dev):
     assert mvn.cholesky(K).shape == (0, 8, 8)
     assert mvn.mvn_ll_inv(K, torch.zeros(0, 8, 3, device=dev),
                           torch.zeros(0, device=dev))[2].shape == (0, 8, 3)
+    z = torch.zeros(1, 0, 8, 2, device=dev)
+    assert se_kernel.se_matrix(z, z, z[..., 0], z[..., 0], torch.ones(1, device=dev),
+                               torch.ones(1, 1, device=dev), None).shape == (1, 0, 8, 8)
     assert mvn.launch_counts == {"chol_inv": 0, "mvn_ll": 0, "tri_inv": 0, "mvn_ll_inv": 0,
-                                 "cholesky": 0}
+                                 "cholesky": 0, "se_kernel": 0, "se_kernel_bwd": 0}
 
 
 def test_functions_backward_match_twin_autograd(dev):
@@ -1037,7 +1040,7 @@ def test_seismic_loss_on_card_matches_the_twins(dev, seismic_problem, R):
     v, g = _loss_grad(kernels, theta, dev)
     torch.cuda.synchronize()
     assert dict(mvn.launch_counts) == {"chol_inv": 1, "mvn_ll": 1, "tri_inv": 1, "mvn_ll_inv": 0,
-                                       "cholesky": 0}
+                                       "cholesky": 0, "se_kernel": 0, "se_kernel_bwd": 0}
     v_ref, g_ref = _loss_grad(twins, theta, dev)
     for a, b, ga, gb in zip(v.reshape(-1), v_ref.reshape(-1), g.reshape(R, -1),
                             g_ref.reshape(R, -1)):
@@ -1448,3 +1451,77 @@ def test_seismic_sparse_runs_on_the_host_engine_of_the_card(dev, tmp_path, monke
     with open(os.path.join(d, "log.txt")) as f:
         values = [float(line.split()[2]) for line in f if line[0].isdigit()]
     assert len(values) >= 3 and max(values) > values[0]
+
+
+# ---- the SE kernel matrices ---------------------------------------------------
+
+
+def _se_inputs(dev, mode, R, N, m, dx, k, seed=0):
+    """Points of N block pairs (block i's in a 0.1-wide cell, block j's in
+    the next cell over) with ragged masks, and each replica's sv, ls
+    (k = 1 or dx) and, in block mode, nv; float64 on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    opts = dict(generator=gen, device=dev, dtype=torch.float64)
+    Xi = torch.rand(R, N, m, dx, **opts) * 0.1
+    n_act = m - torch.randint(0, max(m // 4, 1), (R, N, 1), generator=gen, device=dev)
+    mi = (torch.arange(m, device=dev) < n_act).double()
+    if mode == "block":
+        Xj, mj, nv = Xi, mi, 0.01 + 0.01 * torch.rand(R, **opts)
+    else:
+        Xj = torch.rand(R, N, m, dx, **opts) * 0.1 + 0.05
+        mj, nv = mi.flip(1), None
+    sv = 0.5 + torch.rand(R, **opts)
+    ls = 0.015 + 0.02 * torch.rand(R, k, **opts)
+    G = torch.randn(R, N, m, m, **opts)  # not symmetric
+    return (Xi, Xj, mi, mj, sv, ls, nv), G
+
+
+def _se_run(f, args, G, dtype):
+    """K and the gradients (dXi, dXj, d sv, d ls, d nv) of <K, G> under
+    ``f`` at ``dtype``, for every input that takes one."""
+    block = args[6] is not None  # block mode: Xj is Xi
+    args = [None if a is None else a.to(dtype) for a in args]
+    Xi = args[0].detach().requires_grad_(True)
+    Xj = Xi if block else args[1].detach().requires_grad_(True)
+    sv, ls = (a.detach().requires_grad_(True) for a in args[4:6])
+    nv = None if args[6] is None else args[6].detach().requires_grad_(True)
+    K = f(Xi, Xj, args[2], args[3], sv, ls, nv)
+    leaves = [Xi] + ([] if block else [Xj]) + [sv, ls] + ([] if nv is None else [nv])
+    return K.detach(), torch.autograd.grad(K, leaves, G.to(dtype))
+
+
+# the 10k cell's pair pass, the 80k unary and pair passes; then the kernel's
+# other paths: m not a multiple of 4, one row tile, the generic dx (1, 3, 5,
+# 15), one lengthscale, two replicas
+@pytest.mark.parametrize("mode,R,N,m,dx,k", [
+    ("pair", 1, 342, 136, 2, 2), ("block", 1, 100, 896, 2, 2), ("pair", 1, 342, 896, 2, 2),
+    ("block", 1, 100, 136, 2, 2), ("pair", 2, 5, 37, 2, 1), ("block", 2, 4, 130, 3, 3),
+    ("block", 1, 3, 64, 1, 1), ("pair", 1, 2, 200, 5, 5), ("pair", 2, 3, 129, 15, 1)])
+def test_se_kernel_matches_twin(dev, mode, R, N, m, dx, k):
+    """The kernel in float32 against its twin in float32: the forward and
+    every gradient (dX of both point sets, d sv, d ls, d nv), normwise, under
+    a cotangent that is not symmetric.  The forward is the twin's arithmetic
+    entry by entry; the gradients sum in another order."""
+    args, G = _se_inputs(dev, mode, R, N, m, dx, k, seed=m + dx)
+    mvn.reset_launch_counts()
+    K, grads = _se_run(se_kernel.se_kernel, args, G, torch.float32)
+    torch.cuda.synchronize()
+    assert mvn.launch_counts["se_kernel"] == 1 and mvn.launch_counts["se_kernel_bwd"] == 1
+    K_ref, grads_ref = _se_run(se_kernel.se_kernel_plain, args, G, torch.float32)
+    _close(K, K_ref, rtol=1e-6)
+    for got, ref in zip(grads, grads_ref):
+        _close(got, ref)
+
+
+def test_se_kernel_counts_launches_and_refuses_float64(dev):
+    """One forward launch and one backward launch a call; float64 on the
+    card raises (the float64 route takes the twin, LINALG_OPS)."""
+    args, G = _se_inputs(dev, "pair", 1, 3, 40, 2, 2)
+    mvn.reset_launch_counts()
+    for _ in range(2):
+        _se_run(se_kernel.se_kernel, args, G, torch.float32)
+    torch.cuda.synchronize()
+    assert mvn.launch_counts["se_kernel"] == 2 and mvn.launch_counts["se_kernel_bwd"] == 2
+    with pytest.raises(TypeError, match="float32"):
+        se_kernel.se_kernel(*args)
+    assert mvn.LINALG_OPS.se_kernel is se_kernel.se_kernel_plain

@@ -160,9 +160,13 @@ def test_cpu_calls_launch_no_kernel(rng):
     K = _t(Kp).requires_grad_(True)
     ll = mvn.MvnLL.apply(K, _t(Ym), _t(nact)) + mvn.MvnLLInv.apply(K, _t(Ym), _t(nact))
     L, W = mvn.CholInv.apply(K)
-    (ll.sum() + W.sum() + mvn.TriInv.apply(L).sum() + mvn.Cholesky.apply(K).sum()).backward()
+    X = _t(rng.uniform(size=(1, 2, 8, 2))).requires_grad_(True)
+    mask = _t(np.ones((1, 2, 8)))
+    Kse = mvn.KERNEL_OPS.se_kernel(X, X, mask, mask, _t([1.0]), _t([[0.3]]), _t([0.01]))
+    (ll.sum() + W.sum() + mvn.TriInv.apply(L).sum() + mvn.Cholesky.apply(K).sum()
+     + Kse.sum()).backward()
     assert mvn.launch_counts == {"chol_inv": 0, "mvn_ll": 0, "tri_inv": 0, "mvn_ll_inv": 0,
-                                 "cholesky": 0}
+                                 "cholesky": 0, "se_kernel": 0, "se_kernel_bwd": 0}
 
 
 def test_twin_gives_nan_on_non_pd_like_jax(rng):

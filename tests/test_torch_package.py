@@ -96,10 +96,11 @@ def test_kernel_build_is_lazy_and_keyed_on_the_sources():
 
     assert _build.load.cache_info().currsize == 0  # nothing built at import
     srcs = [p.name for p in _build._sources()]
-    assert {"chol_inv.cu", "mvn.cu", "tri_inv.cu", "mvn_inv.cu", "common.cuh",
+    assert {"chol_inv.cu", "mvn.cu", "tri_inv.cu", "mvn_inv.cu", "se_kernel.cu", "common.cuh",
             "blocked.cuh"} == set(srcs)
     assert {"gprf_chol_inv", "gprf_mvn_ll", "gprf_tri_inv", "gprf_mvn_ll_inv",
-            "gprf_cholesky", "gprf_chol_inv_ctas_per_sm", "gprf_tri_inv_ctas_per_sm",
+            "gprf_cholesky", "gprf_se_kernel", "gprf_se_kernel_bwd",
+            "gprf_chol_inv_ctas_per_sm", "gprf_tri_inv_ctas_per_sm",
             "gprf_mvn_ctas_per_sm", "gprf_mvn_inv_ctas_per_sm"} == set(_build.SIGNATURES)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 

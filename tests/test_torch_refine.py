@@ -306,12 +306,27 @@ def _force_float64(monkeypatch):
     monkeypatch.setattr(jfused, "FusedSyntheticGPRF", Float64Fused)
 
 
+def jax_tail_from_the_last_accepted_point(monkeypatch):
+    """The reference starts its float64 tail at the loop's pending
+    proposal, the port at the loop's last accepted point (``x_prev`` of the
+    saved optimizer state): start the reference's there too, so that both
+    tails run from the same point."""
+    real = jlbfgs.refine_f64
+
+    def refine_f64(d, make_fused, x32, it0, **kw):
+        with np.load(os.path.join(d, "optimizer_state.npz")) as z:
+            return real(d, make_fused, z["x_prev"].astype(np.float64), it0, **kw)
+
+    monkeypatch.setattr(jlbfgs, "refine_f64", refine_f64)
+
+
 @pytest.mark.parametrize("task,extra", [("x", {}), ("xcov", {})])
 def test_refine_iters_run_matches_jax(exp, monkeypatch, task, extra):
     """``do_run`` with 20 float32-loop iterations (float64 here) and 10 of
     the float64 tail: the log goes on from 20, results.txt scores every
     row, covs.txt goes on for the theta task."""
     _force_float64(monkeypatch)
+    jax_tail_from_the_last_accepted_point(monkeypatch)
     dt, dj = exp / "torch_run", exp / "jax_run"
     dt.mkdir()
     dj.mkdir()
@@ -321,10 +336,11 @@ def test_refine_iters_run_matches_jax(exp, monkeypatch, task, extra):
     (ts, tv), (js, jv) = _log(str(dt)), _log(str(dj))
     assert list(ts) == list(js) == list(range(30))
     np.testing.assert_allclose(tv, jv, rtol=RTOL, atol=LOG_ATOL)
-    # the tail starts at the float32 loop's pending proposal, as the reference's
-    # does (its first row may lie below the loop's last), and from there its
-    # rows do not fall by more than the runner's slack of 8 float32 eps
-    assert np.diff(tv[20:]).min() >= -(LOG_ATOL + 1e-6 * np.abs(tv).max())
+    # the tail starts at the loop's last accepted point, so its first row is
+    # the loop's last, and from there its rows do not fall by more than the
+    # runner's slack of 8 float32 eps
+    assert abs(tv[20] - tv[19]) <= LOG_ATOL
+    assert np.diff(tv[19:]).min() >= -(LOG_ATOL + 1e-6 * np.abs(tv).max())
     rows = _rows(str(dt))
     assert rows[20].startswith("optimization finished") and rows[-1].startswith(
         "f64 refinement finished")

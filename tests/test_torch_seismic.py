@@ -21,6 +21,7 @@ from gprf_tpu.kernels import hostnp as jhostnp
 from gprf_tpu.kernels.gpcov import GPCov as JCov
 from gprf_tpu.model.fused_seismic import FusedSeismicGPRF as JFused
 from gprf_tpu.model.gprf import GPRF as JGPRF
+from gprf_tpu.optim import device_lbfgs as jlbfgs
 from gprf_tpu.optim import driver as jdriver
 from gprf_tpu.optim.priors import seismic_cov_prior as j_cov_prior
 from gprf_tpu.partition import morton as jmorton
@@ -550,6 +551,19 @@ def test_run_seismic_refuses_what_is_not_ported_and_wants_a_gpu(seismic_exp):
             tcli.main(ARGV + data)
 
 
+def jax_tail_from_the_last_accepted_point(monkeypatch):
+    """The reference starts its float64 tail at the loop's pending
+    proposal, the port at the loop's last accepted point (``x_prev`` of the
+    saved optimizer state): start the reference's there too."""
+    real = jlbfgs.refine_f64
+
+    def refine_f64(d, make_fused, x32, it0, **kw):
+        with np.load(os.path.join(d, "optimizer_state.npz")) as z:
+            return real(d, make_fused, z["x_prev"].astype(np.float64), it0, **kw)
+
+    monkeypatch.setattr(jlbfgs, "refine_f64", refine_f64)
+
+
 def test_run_seismic_refine_matches_jax(seismic_exp, monkeypatch):
     """The device engine for 20 iterations and the float64 tail for 10, in
     float64 against the reference's: the log goes on from 20, covs.txt too,
@@ -561,6 +575,7 @@ def test_run_seismic_refine_matches_jax(seismic_exp, monkeypatch):
             super().__init__(*args, dtype=jnp.float64, **kw)
 
     monkeypatch.setattr(jfs, "FusedSeismicGPRF", Float64Fused)
+    jax_tail_from_the_last_accepted_point(monkeypatch)
     base, data = seismic_exp
     argv = ARGV + data + ["--engine", "device", "--max_iters", "20", "--refine_iters", "10"]
     args = tcli.build_parser().parse_args(argv + ["--device", "cpu"])
@@ -572,6 +587,7 @@ def test_run_seismic_refine_matches_jax(seismic_exp, monkeypatch):
     (ts, tv), (js, jv) = _log(d), _log(jd)
     assert list(ts) == list(js) == list(range(30))
     np.testing.assert_allclose(tv, jv, rtol=RTOL, atol=LOG_ATOL)
+    assert abs(tv[20] - tv[19]) <= LOG_ATOL  # the tail starts at the last accepted point
     with open(os.path.join(d, "log.txt")) as f:
         assert f.read().splitlines()[-1].startswith("f64 refinement finished after")
     with open(os.path.join(d, "covs.txt")) as f, open(os.path.join(jd, "covs.txt")) as g:
