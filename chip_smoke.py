@@ -86,12 +86,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
              inputs ([342,176,176]).
 10. resume - a device-engine run stopped after two dispatches and resumed
              from optimizer_state.npz: no step index twice in log.txt.
-11. bench  - ``gprf_torch.bench``'s record, logged.
-12. multistart - the bench's problem from 3 starts: the replica-batched
+11. multistart - the flagship problem from 3 starts: the replica-batched
              runner (the replicas folded into one kernel batch) against the
              single-start runner from each start over 4 steps, values within
              the routes' tolerance.
-13. seismic - ``gprf_torch.cli.run_seismic.main`` on the seismic command
+12. seismic - ``gprf_torch.cli.run_seismic.main`` on the seismic command
              (the 12,000-event catalog sampled into a temporary data_dir,
              64 PD-tree blocks, 108 edges at threshold 0.6, m = 192, dy =
              50, Matern-3/2 over the great-circle distance, task xcov)
@@ -106,9 +105,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
              ([64|256,192,192], [108|432,192,192] + [.,192,50]), the
              device-busy ms of one loss+grad at each, and the three routes
              of FusedSeismicGPRF against their twins and each other.
-14. seismic_host - the same data with ``--engine host`` for a few seconds:
+13. seismic_host - the same data with ``--engine host`` for a few seconds:
              the files and a rising objective.
-15. eighty - ``gprf_torch.cli.gprfopt.main`` on the paper's 80k command
+14. eighty - ``gprf_torch.cli.gprfopt.main`` on the paper's 80k command
              (n = 80,000 + 500, 100 blocks, 342 edges, m ~ 872-888, lengthscale
              0.021213, obs_std 0.007071, task x) on the Vecchia draw
              (GPRF_SAMPLER=vecchia), device engine, EIGHTY_ITERS iterations,
@@ -127,7 +126,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
              shape of this path, and the SE kernel on its unary and pair
              points as at the cli phase; peak memory, device-busy ms and launches of one
              loss+grad chunked by 64 and unchunked.
-16. baselines - the GPLVM baselines through ``gprf_torch.cli.gprfopt.main``
+15. baselines - the GPLVM baselines through ``gprf_torch.cli.gprfopt.main``
              on the host engine: the truegp suite's data (the cli phase's
              10,000 + 500 points in one block, local GPs) with
              ``--gplvm_type titsias`` and ``sparse`` (FITC) at 2,000
@@ -138,7 +137,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
              objective in float64 on the card; the objective rises and the
              mad falls; ms per evaluation.  Then ``bayesian`` and ``basic``
              at n = 2,000 (100 inducing points): finite and rising.
-17. refine - ``--refine_iters``: the command line's flagship on the device
+16. refine - ``--refine_iters``: the command line's flagship on the device
              engine, 40 float32 iterations and 20 of the float64 tail on
              LINALG_OPS (task x, then xcov for covs.txt), and the seismic
              command with 10: the log's numbering goes on, the tail's rows
@@ -146,7 +145,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
              K1-K5 launch inside the tail, ms per float64 iteration.  On the
              80k phase's data (m = 888): the default cap skips the tail with
              its message, GPRF_REFINE_MAX_M=1024 runs it 2 steps a dispatch.
-18. kernelized - GPRF(kernelized=True) on the cli phase's data, YY =
+17. kernelized - GPRF(kernelized=True) on the cli phase's data, YY =
              SY SY^T [10,000, 10,000] formed once on the card (B = 100, E =
              342, m = 136; each pair a 272-wide term, split into K1 leaves
              of 136): one loss+grad on the kernels against the twins in
@@ -157,12 +156,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
              ms, launches and host-clock ms of one loss+grad; the scipy
              driver for KERNELIZED_EVALS evaluations, counters reset before
              and read after: the objective rises, K1 launched and no other.
-19. tools  - ``python -m gprf_torch.cli.analyze gen-runs``: three scripts
+18. tools  - ``python -m gprf_torch.cli.analyze gen-runs``: three scripts
              of ``gprf_torch.cli.gprfopt`` commands; the paper's figure
              series (``analysis/paper_figures.py``) of the cli phase's run,
              found under the truegp suite's GPRF-100 name; ``device_trace``
              around one flagship loss+grad: a trace that names K1-K3.
-20. sparse - ``run_seismic.main --engine host --sparse`` on the seismic
+19. sparse - ``run_seismic.main --engine host --sparse`` on the seismic
              phase's data at SPARSE_FLAGS (2,000 events) for
              SPARSE_SECONDS: the files, at least 3 rows, a rising
              objective, seconds an evaluation; then on the whole catalog's
@@ -256,9 +255,9 @@ EIGHTY_SAMPLER = "vecchia"
 EIGHTY_ITERS = 40
 EIGHTY_CHUNK = 64  # the reference's pair chunk past m = 512; on the card the rule runs it whole
 OUR_KERNELS = ("chol_inv_kernel", "mvn_kernel", "tri_inv_kernel")  # K1-K3 in a profiler trace
-# The kernelized objective (phase 18): the scipy driver's evaluations over it
+# The kernelized objective (phase 17): the scipy driver's evaluations over it
 KERNELIZED_EVALS = 20
-# --sparse on the seismic host engine (phase 20): the seismic command on the
+# --sparse on the seismic host engine (phase 19): the seismic command on the
 # last 2,000 events of the catalog (the reference's --npts), for
 # SPARSE_SECONDS, since one evaluation of all 12,000 events takes tens of
 # seconds (the phase times one).
@@ -283,7 +282,7 @@ RTOL_JOINT = 1e-9
 # float64 as the twins in float32 are
 EIGHTY_F32_RTOL = 3.5e-4
 EIGHTY_F32_MIN_COSINE = 0.99927
-# The GPLVM baselines (phase 16): the truegp suite's data, the cli flagship's
+# The GPLVM baselines (phase 15): the truegp suite's data, the cli flagship's
 # 10,000 + 500 points in one block with local GPs (docs/runs/truegp_suite), at
 # 2,000 inducing points, each for BASELINE_SECONDS of the host engine
 BASELINE_FLAGS = ["--ntrain", "10000", "--ntest", "500", "--nblocks", "1", "--lscale", "0.06",
@@ -304,13 +303,13 @@ SMALL_BASELINE_FLAGS = ["--ntrain", "2000", "--ntest", "100", "--nblocks", "1", 
                         "0.06", "--obs_std", "0.02", "--local_dist", "1.0", "--yd", "50",
                         "--task", "x", "--engine", "host", "--num_inducing", "100",
                         "--maxsec", "10"]
-# The float64 tail (phase 17): float32 iterations, then float64 ones
+# The float64 tail (phase 16): float32 iterations, then float64 ones
 REFINE_F32_ITERS, REFINE_ITERS, SEISMIC_REFINE_ITERS = 40, 20, 10
 # the tail's last row against the float32 loop's last: the tail computes in
 # float64 what the loop computed in float32 (1e-5 is the routes' float32
 # loss agreement, RTOL_LOSS), and it starts at the loop's last accepted point
 REFINE_RTOL = 1e-5
-# the multistart check: replicas and steps on the bench's problem.  Two float32
+# the multistart check: replicas and steps on the flagship problem.  Two float32
 # runs whose reductions reassociate part by ~1e-7 at the first steps, and this
 # ill-conditioned problem (Y iid noise) grows that ~3x a step, past 1e-5 at
 # step 5-6 (scripts/torch_multistart_divergence.py); a single start run twice
@@ -353,12 +352,6 @@ RTOL_BWD = 1e-3
 RTOL_LOSS = 1e-5
 MIN_GRAD_COSINE = 0.9999
 
-# Published peaks of one H100 SXM at 700 W: float32 outside the tensor
-# cores, and HBM3 bandwidth.
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-
-
 def log(msg):
     print(msg, file=sys.stderr, flush=True)
 
@@ -387,39 +380,38 @@ def median_ms(fn, torch, reps=20, launches=10):
     return statistics.median(times)
 
 
-def work(name, args):
-    """(FLOPs, bytes) of one call of kernel `name` on `args`: each input read
-    once, the [B, m, m] matrix (K or L) only in its lower triangle, the one
-    part that each kernel's function depends on, and each output written
-    once, whole; a Cholesky or a triangular inverse m^3/3 FLOPs a matrix, a
-    substitution of dy right-hand sides m^2 dy and the quadratic form
-    2 m dy."""
-    B, m = args[0].shape[:2]
-    dy = args[1].shape[-1] if len(args) > 1 else 0
-    chol, rhs = m ** 3 / 3, m * m * dy + 2 * m * dy
-    flops = {"chol_inv": 2 * chol, "mvn_ll": chol + rhs, "tri_inv": chol,
-             "mvn_ll_inv": 2 * chol + rhs, "cholesky": chol}[name]
-    out_floats = {"chol_inv": 2 * m * m, "mvn_ll": m * m + 1, "tri_inv": m * m,
-                  "mvn_ll_inv": m * m + m * dy + 1, "cholesky": m * m}[name]
-    in_bytes = (B * m * (m + 1) // 2 * args[0].element_size()
-                + sum(a.numel() * a.element_size() for a in args[1:]))
-    return B * flops, in_bytes + B * out_floats * 4
-
-
 def bound(name, args):
     """(ms, "operations" or "bytes"): the least time the card could take
-    for the work, at the published peaks."""
-    flops, nbytes = work(name, args)
-    ops_ms, bytes_ms = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
+    for one call of kernel `name` on `args` at the published peaks, by the
+    benchmark's cost model (``gprfbench.work``)."""
+    from gprfbench.work import PEAKS, kernel_bound_s, kernel_work
+
+    B, m = args[0].shape[:2]
+    dy = args[1].shape[-1] if len(args) > 1 else 0
+    flops, nbytes = kernel_work(name, B, m, dy)
+    ops_bound = flops / PEAKS["f32_flops"] > nbytes / PEAKS["hbm_bytes_per_s"]
+    return kernel_bound_s(name, B, m, dy) * 1e3, "operations" if ops_bound else "bytes"
 
 
-def build_problem(torch, dev):
-    """The flagship problem as the bench builds it (bench.py's, seed 0)."""
-    from gprf_torch.bench import build_problem as bench_problem
+def build_problem(torch, dev, **fused_options):
+    """The flagship problem (a FusedGridGPRF in float32, task x) from
+    NumPy's ``default_rng(0)``: N latent points in the unit square observed
+    with OBS_STD noise, NBLOCKS grid blocks with their 180 axis-only edges,
+    Y iid noise [N, DY] (the time of an evaluation does not depend on Y's
+    distribution).  ``fused_options`` go to FusedGridGPRF."""
+    from gprf_torch.model.fused import FusedGridGPRF
+    from gprf_torch.partition.grid import Blocker, grid_centers
+    from gprf_torch.utils.convert import cov_from_numpy
 
-    fused, X_obs = bench_problem(dev, torch.float32, n=N, nblocks=NBLOCKS, yd=DY, lscale=LSCALE,
-                                 obs_std=OBS_STD)
+    rng = np.random.default_rng(0)
+    SX = rng.uniform(size=(N, 2))
+    X_obs = SX + rng.standard_normal(SX.shape) * OBS_STD
+    Y = rng.standard_normal((N, DY))
+    b = Blocker(grid_centers(NBLOCKS))
+    cov = cov_from_numpy([1.0], [LSCALE, LSCALE], device=dev, dtype=torch.float32)
+    fused = FusedGridGPRF(X_obs, Y, b.block_centers, b.neighbors(diag_connections=False), X_obs,
+                          OBS_STD, cov, NOISE_VAR, device=dev, dtype=torch.float32,
+                          **fused_options)
     if (fused.m, int(fused.edges.shape[0])) != (M0, 180):
         raise AssertionError(f"flagship layout is m={fused.m}, E={fused.edges.shape[0]}; "
                              "want 136, 180")
@@ -471,7 +463,7 @@ def recorded_inputs(holder, evaluate, every_shape=False):
 
 def flagship_inputs(fused, x_flat, torch):
     """The inputs of one loss of a fused engine at the point x_flat: at the
-    bench's flagship [100, 136, 136], [180, 136, 136] and [180, 136, 50]."""
+    flagship [100, 136, 136], [180, 136, 136] and [180, 136, 50]."""
     x0 = torch.as_tensor(x_flat, dtype=fused.dtype, device=fused.device)
     return recorded_inputs(fused, lambda: fused.loss_fn()(x0))
 
@@ -696,6 +688,7 @@ def check_se_kernel(what, calls, gen, torch):
     the twin's of each, and each one's bound, the bytes it must move over
     3.35 TB/s."""
     from gprf_torch.ops import se_kernel
+    from gprfbench.work import PEAKS
 
     out = []
     for args in calls:
@@ -716,8 +709,9 @@ def check_se_kernel(what, calls, gen, torch):
                  bwd_ms=median_ms(lambda: se_kernel.se_grads(G, *args), torch),
                  bwd_plain_ms=median_ms(lambda: se_kernel.se_grads_plain(G, *args), torch,
                                         reps=5),
-                 bound_ms=se_kernel_bytes(args) / PEAK_BYTES_PER_S * 1e3,
-                 bwd_bound_ms=se_kernel_bytes(args, grads=True) / PEAK_BYTES_PER_S * 1e3)
+                 bound_ms=se_kernel_bytes(args) / PEAKS["hbm_bytes_per_s"] * 1e3,
+                 bwd_bound_ms=(se_kernel_bytes(args, grads=True) / PEAKS["hbm_bytes_per_s"]
+                               * 1e3))
         r.update(share=r["bound_ms"] / r["ms"], bwd_share=r["bwd_bound_ms"] / r["bwd_ms"])
         log(f"{what}: se_kernel {mode} {shape}: fwd rel err {fwd:.3e}, bwd rel err {bwd:.3e}; "
             f"forward {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, {100 * r['share']:.1f}%) vs "
@@ -831,9 +825,9 @@ def check_routes(fused, x0, torch, m=M0, what="route"):
     """Per route: one loss+grad on the kernels against the same route on the
     twins, and against the default route on the kernels; then ms/eval of
     every route on both, in turns, at the capacity m."""
-    from gprf_torch.bench import device_busy
     from gprf_torch.ops import mvn
     from gprf_torch.optim.lbfgs import value_and_grad
+    from gprf_torch.utils.profiling import device_busy
 
     fused.m = m
     losses, evals, report = [], {}, {}
@@ -946,11 +940,11 @@ def cli_engine(data, torch, X0=None):
 def run_cli(base, cases, torch):
     """Phase 6: the command line's flagship on the device engine."""
     from gprf_torch.analysis.results import load_final_results, load_results
-    from gprf_torch.bench import device_busy
     from gprf_torch.cli import gprfopt
     from gprf_torch.data.sampled import sample_data
     from gprf_torch.ops import mvn
     from gprf_torch.partition.grid import grid_centers
+    from gprf_torch.utils.profiling import device_busy
 
     os.environ["GPRF_EXPERIMENTS"] = base
     argv = CLI_FLAGS + ["--engine", "device", "--max_iters", str(CLI_ITERS)]
@@ -1103,14 +1097,14 @@ def run_predict(d, data, cases, torch):
 
 
 def run_kernelized(data, cli, cases, torch):
-    """Phase 18: the kernelized (second-moment) objective on the cli phase's
+    """Phase 17: the kernelized (second-moment) objective on the cli phase's
     data, YY = SY SY^T formed once on the card."""
-    from gprf_torch.bench import kernel_events
     from gprf_torch.model.gprf import GPRF
     from gprf_torch.model.kernelized import kernelized_ll
     from gprf_torch.model.objective import GPRFParams
     from gprf_torch.ops import mvn, split_mvn
     from gprf_torch.optim.driver import OutOfTimeError, do_optimization
+    from gprf_torch.utils.profiling import kernel_events
 
     schur = data.build_gprf(local_dist=0.1, device="cuda", dtype=torch.float32)
     B, E, m = schur.n_blocks, len(schur.neighbors), schur.layout.block_pad
@@ -1237,7 +1231,7 @@ def run_kernelized(data, cli, cases, torch):
 
 
 def run_tools(base, cli, data, torch):
-    """Phase 19: the analysis command line, the paper's figure series of
+    """Phase 18: the analysis command line, the paper's figure series of
     the cli phase's run and a device trace."""
     from gprf_torch.analysis import fleet, paper_figures
     from gprf_torch.cli import analyze, gprfopt
@@ -1299,11 +1293,11 @@ def run_rpc(base, cases, torch):
     import io
 
     from gprf_torch.analysis.results import load_final_results, load_results
-    from gprf_torch.bench import device_busy
     from gprf_torch.cli import gprfopt
     from gprf_torch.data.sampled import sample_data
     from gprf_torch.model.fused import FusedSyntheticGPRF
     from gprf_torch.ops import mvn
+    from gprf_torch.utils.profiling import device_busy
 
     argv = RPC_FLAGS + ["--engine", "device", "--max_iters", str(CLI_ITERS)]
     d = gprfopt.exp_dir(gprfopt.build_parser().parse_args(argv))
@@ -1507,7 +1501,7 @@ def run_resume(base, data, torch):
 
 
 def check_multistart(fused, x_flat, torch):
-    """Phase 12: the bench's problem from MULTISTART_REPLICAS starts (the
+    """Phase 11: the flagship problem from MULTISTART_REPLICAS starts (the
     observed X and perturbations at the observation prior's scale), the
     replica-batched runner against the single-start runner from each start."""
     from gprf_torch.ops import mvn
@@ -1530,7 +1524,7 @@ def check_multistart(fused, x_flat, torch):
         _, (single, _, _) = run1(init1(x0s[r]))
         ref = single.double()
         rels.append(float((values[r].double() - ref).abs().max() / ref.abs().max()))
-    log(f"multistart, bench problem, R={MULTISTART_REPLICAS}, {MULTISTART_STEPS} steps: "
+    log(f"multistart, flagship problem, R={MULTISTART_REPLICAS}, {MULTISTART_STEPS} steps: "
         f"max rel value difference to the single starts per replica {rels}; launches of the "
         f"batched run {launches} (K1 on [{MULTISTART_REPLICAS * NBLOCKS},{M0},{M0}])")
     if not max(rels) <= RTOL_LOSS or launches["chol_inv"] != MULTISTART_STEPS + 1:
@@ -1551,10 +1545,10 @@ def read_seismic_results(d):
 
 
 def run_seismic_device(base, cases, torch):
-    """Phase 13: the seismic command on the device engine with replicas."""
-    from gprf_torch.bench import device_busy, splits_at
+    """Phase 12: the seismic command on the device engine with replicas."""
     from gprf_torch.cli import run_seismic
     from gprf_torch.ops import mvn
+    from gprf_torch.utils.profiling import device_busy, splits_at
 
     data = os.path.join(base, "data")
     os.makedirs(data)
@@ -1629,7 +1623,7 @@ def run_seismic_device(base, cases, torch):
 
 
 def run_seismic_host(base, data, torch):
-    """Phase 14: the seismic command on the host engine, on the same data."""
+    """Phase 13: the seismic command on the host engine, on the same data."""
     from gprf_torch.cli import run_seismic
     from gprf_torch.ops import mvn
 
@@ -1663,7 +1657,7 @@ def run_seismic_host(base, data, torch):
 
 
 def run_sparse(base, seismic_data, torch):
-    """Phase 20: ``--sparse`` on the seismic host engine, and the sparse
+    """Phase 19: ``--sparse`` on the seismic host engine, and the sparse
     llgrad against the dense one on an 8-block sub-model."""
     from gprf_torch.cli import run_seismic
     from gprf_torch.model.gprf import GPRF
@@ -1749,14 +1743,13 @@ def float32_held(got, twins):
 
 
 def run_eighty(base, cases, torch):
-    """Phase 15: the paper's 80k command on the device engine at wide m, and
+    """Phase 14: the paper's 80k command on the device engine at wide m, and
     at its final X the kernels against the twins, the float64 joint form
     against the float64 Schur split, float32 against that, and the host
     engine's objective against the device engine's."""
     import io
 
     from gprf_torch.analysis.results import load_final_results, load_results
-    from gprf_torch.bench import kernel_events
     from gprf_torch.cli import gprfopt
     from gprf_torch.data.sampled import sample_data
     from gprf_torch.model.fused import assemble_layout, grid_labels
@@ -1766,6 +1759,7 @@ def run_eighty(base, cases, torch):
     from gprf_torch.ops import mvn
     from gprf_torch.optim.lbfgs import value_and_grad
     from gprf_torch.partition.grid import grid_centers
+    from gprf_torch.utils.profiling import kernel_events
 
     os.environ["GPRF_EXPERIMENTS"] = base
     os.environ["GPRF_SAMPLER"] = EIGHTY_SAMPLER
@@ -2041,7 +2035,7 @@ def run_baseline(flags, torch):
 
 
 def run_baselines(base, smi, torch):
-    """Phase 16: the GPLVM baselines through the command line."""
+    """Phase 15: the GPLVM baselines through the command line."""
     from gprf_torch.data.sampled import sample_data
     from gprf_torch.partition.grid import grid_centers
 
@@ -2151,7 +2145,7 @@ def check_refined_log(what, d, iters, tail, smi):
 
 
 def run_refine(base, smi, torch):
-    """Phase 17, the command line: the flagship with a float64 tail, task x
+    """Phase 16, the command line: the flagship with a float64 tail, task x
     and xcov, on the cli phase's cached data."""
     from gprf_torch.cli import gprfopt
 
@@ -2179,7 +2173,7 @@ def run_refine(base, smi, torch):
 
 
 def run_refine_seismic(base, data, smi, torch):
-    """Phase 17, the seismic command with a float64 tail, on phase 13's data."""
+    """Phase 16, the seismic command with a float64 tail, on phase 12's data."""
     from gprf_torch.cli import run_seismic
 
     os.environ["SEISMIC_EXPERIMENTS"] = os.path.join(base, "refine")
@@ -2192,7 +2186,7 @@ def run_refine_seismic(base, data, smi, torch):
 
 
 def run_refine_wide(base, eighty_dir, smi, torch):
-    """Phase 17 at m = 888, from the 80k phase's final X: the default cap
+    """Phase 16 at m = 888, from the 80k phase's final X: the default cap
     skips the tail, GPRF_REFINE_MAX_M=1024 runs it 2 steps a dispatch."""
     import io
 
@@ -2289,10 +2283,8 @@ def main():
     for name, route in KERNEL_ROUTE.items():
         report[name]["launches"] = routes[route]["launches"][name]
     multistart = check_multistart(fused, x_flat, torch)
-    bench_edges = int(fused.edges.shape[0])
+    flagship_edges = int(fused.edges.shape[0])
     del fused
-
-    from gprf_torch import bench
 
     experiments = {k: os.environ.get(k) for k in ("GPRF_EXPERIMENTS", "SEISMIC_EXPERIMENTS",
                                                   "GPRF_SAMPLER")}
@@ -2338,15 +2330,13 @@ def main():
     del rpc["kernels"], eighty["kernels"]
     for r in SEISMIC_R:
         del seismic[r]["kernels"]
-    bench_record = bench.run(dev, log=log)
-    log(f"bench: {json.dumps(bench_record)}")
 
     log(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({
         "kernels": list(report.values()),
-        "slice": {"n": N, "blocks": NBLOCKS, "m": M0, "edges": bench_edges, "dy": DY, "routes": routes,
+        "slice": {"n": N, "blocks": NBLOCKS, "m": M0, "edges": flagship_edges, "dy": DY,
+                  "routes": routes,
                   "cli": cli, "predict": predict, "rpc": rpc, "host": host, "resume": resume,
-                  "bench": bench_record,
                   "multistart": multistart, "seismic": seismic, "seismic_host": seismic_host,
                   "eighty": eighty, "baselines": baselines, "refine": refine,
                   "kernelized": kernelized, "tools": tools, "sparse": sparse},

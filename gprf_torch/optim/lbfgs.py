@@ -19,6 +19,11 @@ together (multistart), each with its own acceptance, curvature memory,
 replicas are folded into the loss's own batch, so its kernels launch once
 for all of them.
 
+The three drivers (single start, multistart, the float64 tail) share one
+dispatch loop, :func:`_dispatch_loop`, with one stall rule and one closing
+``finally``; each gives it its differences as data (:class:`_Plan`) and
+one function that reads a dispatch's outputs on the host.
+
 The runner and the drivers mark their layers with spans of
 :mod:`gprf_torch.utils.profiling` (``fit``, ``init_eval``, ``dispatch``,
 ``step``, ``forward``, ``backward``, ``update``, ``overflow_check``,
@@ -30,8 +35,10 @@ restarts of diverged replicas.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
+from collections.abc import Callable
 
 import numpy as np
 import torch
@@ -195,7 +202,7 @@ def make_multistart_runner(loss_fn, num_steps: int, **kwargs):
     return make_scan_lbfgs_runner(loss_fn, num_steps, **kwargs)
 
 
-# ---- drivers: the file protocol around the runner ---------------------------
+# ---- the dispatch loop: the file protocol around the runner -------------------
 
 class GrowingRunner:
     """The scan-L-BFGS runner over a fused evaluator (``loss_fn``,
@@ -301,6 +308,151 @@ def _fc_from_tail(fused, tail, ntheta):
     return fused.unpack_host(full)[1]
 
 
+class _Stall:
+    """The one stall rule, over each dispatch's objective values nll
+    [R, steps] (R = 1 for a single start): the run stops at the
+    ``patience``-th dispatch in a row in which no replica's best value fell
+    ``tol`` (relative) below its best so far.  A non-finite value counts as
+    +inf: a diverged replica's column improves nothing, its first finite
+    value after a restart does."""
+
+    def __init__(self, tol: float, patience: int):
+        self.tol, self.patience = tol, patience
+        self.best = np.inf  # [R] after the first dispatch
+        self.count = 0
+
+    def __call__(self, nll) -> bool:
+        best = np.where(np.isfinite(nll), nll, np.inf).min(axis=1)
+        with np.errstate(invalid="ignore"):  # inf - inf: a column that never was finite
+            improved = np.isfinite(best) & ~(self.best - best < self.tol * (np.abs(self.best)
+                                                                             + 1e-12))
+        self.best = np.minimum(self.best, best)
+        if improved.any():
+            self.count = 0
+            return False
+        self.count += 1
+        return self.count >= self.patience
+
+
+@dataclasses.dataclass
+class _Plan:
+    """What tells one driver's loop from another's, as data
+    (:func:`_dispatch_loop`)."""
+
+    steps: int  # a dispatch
+    end: int  # the step index the loop stops before
+    maxsec: float
+    tol: float  # the stall rule's (:class:`_Stall`)
+    patience: int
+    # the carry's current point: where a growth restarts it, what a
+    # checkpoint saves and what the loop returns
+    at: str = "x"
+    mode: str = "w"  # of the row files; those of ``files`` open at the start
+    files: tuple = ("log.txt",)
+    # theta -> (X, FC) of the checkpoints (None: no checkpoints), which come
+    # on the cadence and after the last dispatch
+    unpack: Callable | None = None
+    ckpt_every_sec: float = 10.0
+    save_state: bool = False  # the optimizer state at each checkpoint
+    trailer: str = "optimization finished after %.fs\n"
+    finish: bool = True  # the ``finished`` marker and ``counters.json``
+
+
+def _point(carry, at):
+    """(theta, values) on the host, float64: ``carry[at]`` and None, or for
+    replicas the point of the one with the least value ``v``, and every
+    replica's value [R]."""
+    if carry[at].dim() == 1:
+        return _host(carry[at].double()), None
+    v = _host(carry["v"].double())
+    return _host(carry[at][int(np.argmin(v))].double()), v
+
+
+def _dispatch_loop(d, fused, plan: _Plan, read, x0, carry=None, it: int = 0):
+    """The drivers' one loop over dispatches of the scan-L-BFGS runner on
+    ``fused`` (:class:`GrowingRunner`), from x0 [n] or, for R replicas,
+    [R, n] (or from a resumed ``carry`` at step ``it``), inside the
+    :func:`~gprf_torch.utils.profiling.fit` of the run.
+
+    In each dispatch the driver's ``read(carry, outs, it, grow) -> (carry,
+    nll, winner, fc)`` reads the runner's outputs on the host, calls
+    ``grow(carry)`` where the capacity overflowed, and returns the steps'
+    objective values nll [R, steps], the replica whose column log.txt shows
+    and the covs.txt row (None for none).  Replicas also get
+    ``multistart.txt``, a column each.  Returns :func:`_point` at
+    ``plan.at``."""
+    S = plan.steps
+    batched = x0.dim() == 2
+    with profiling.fit(fused.m, replicas=x0.shape[0] if batched else 1) as fit:
+        runner = GrowingRunner(fused, S)
+        if carry is None:
+            carry = runner.init_fn(x0)
+        files = {}
+
+        def write(name, text):
+            if name not in files:
+                files[name] = open(os.path.join(d, name), plan.mode)
+            files[name].write(text)
+            files[name].flush()
+
+        for name in plan.files + (("multistart.txt",) if batched else ()):
+            write(name, "")
+        stalled = _Stall(plan.tol, plan.patience)
+        t0 = time.time()
+        last_ckpt = -np.inf
+
+        def grow(c):
+            return runner.grow(c, at=plan.at)
+
+        def checkpoint(it_base):
+            fit_counts["checkpoints"] += 1
+            with span("checkpoint"):
+                theta, _ = _point(carry, plan.at)
+                # never leave a non-finite step_*_X.npy for the analysis to read
+                if not np.all(np.isfinite(theta)):
+                    raise FloatingPointError("optimizer diverged to non-finite theta")
+                X, FC = plan.unpack(theta)
+                # the index of this dispatch's last logged row, so the analysis
+                # finds a checkpoint for the final step
+                save_step(d, it_base + S - 1, X=X, FC=FC)
+                if plan.save_state:
+                    save_optimizer_state(d, carry, it_base + S)
+
+        try:
+            while it < plan.end and time.time() - t0 < plan.maxsec:
+                with span("dispatch"):
+                    carry, outs = runner.run_fn(carry)
+                    carry, nll, winner, fc = read(carry, outs, it, grow)
+                    now = time.time() - t0
+                    write("log.txt", "".join("%d %.2f %.2f\n" % (it + k, now, -nll[winner, k])
+                                             for k in range(S)))
+                    if batched:
+                        write("multistart.txt", "".join(
+                            "%d %.2f %s\n" % (it + k, now, " ".join("%.2f" % -v for v in nll[:, k]))
+                            for k in range(S)))
+                    if fc is not None:
+                        write("covs.txt", "%d %s\n" % (it + S - 1, fc))
+                if plan.unpack is not None and now - last_ckpt >= plan.ckpt_every_sec:
+                    checkpoint(it)
+                    last_ckpt = now
+                it += S
+                if stalled(nll):
+                    break
+            if it and plan.unpack is not None:
+                checkpoint(it - S)
+        finally:
+            write("log.txt", plan.trailer % (time.time() - t0))
+            for f in files.values():
+                f.close()
+            if plan.finish:
+                with open(os.path.join(d, "finished"), "w") as f:
+                    f.write("")
+                fit.write(d, fused.m)
+        return _point(carry, plan.at)
+
+
+# ---- the drivers --------------------------------------------------------------------
+
 def do_optimization_fused_theta(d, fused, theta0, maxsec: float = 3600, max_iters: int = 600,
                                 steps_per_dispatch: int = 20, ftol: float = 1e-6,
                                 resume: bool = False, ckpt_every_sec: float = 10.0,
@@ -319,102 +471,42 @@ def do_optimization_fused_theta(d, fused, theta0, maxsec: float = 3600, max_iter
     counters go to ``counters.json`` (:class:`~gprf_torch.utils.profiling.Fit`).
 
     When a block outgrows the padded slot count the capacity grows and the
-    run goes on from the current point (:class:`GrowingRunner`).
+    run goes on from the current point (:class:`GrowingRunner`).  A
+    non-finite objective raises ``FloatingPointError``.
 
     Returns the final flat theta (float64 on the host)."""
-    dev, dtype = fused.device, fused.dtype
     ncov = fused.ncov
     ntheta = int(np.asarray(theta0).size)
-
     S = steps_per_dispatch
-    with profiling.fit(fused.m) as fit:
-        runner = GrowingRunner(fused, S)
-        it = 0
-        carry = None
-        if resume:
-            carry, it = load_optimizer_state(d, dev)
-        if carry is None:
-            carry = runner.init_fn(torch.as_tensor(np.asarray(theta0).reshape(-1), dtype=dtype,
-                                                   device=dev))
-            it = 0
-        appending = bool(resume and it)
-        if appending:
-            _truncate_log_rows(os.path.join(d, "log.txt"), it)
-            _truncate_log_rows(os.path.join(d, "covs.txt"), it)
-        f_log = open(os.path.join(d, "log.txt"), "a" if appending else "w")
-        # covs.txt only on cov-bearing tasks
-        covf = open(os.path.join(d, "covs.txt"), "a" if appending else "w") if ncov else None
-        t0 = time.time()
-        prev_best = np.inf
-        stall = 0
-        last_ckpt = -np.inf
+    carry, it = load_optimizer_state(d, fused.device) if resume else (None, 0)
+    appending = bool(it)
+    if appending:
+        _truncate_log_rows(os.path.join(d, "log.txt"), it)
+        _truncate_log_rows(os.path.join(d, "covs.txt"), it)
 
-        def theta_host():
-            return _host(carry["x"].double())
+    def read(carry, outs, it, grow):
+        step_values, accepted, _, overflow = outs
+        # the cov tail of the last EVALUATED point (x_prev; carry["x"] is the
+        # next proposal), so the covs.txt row pairs with the logged objective
+        out = _host(torch.cat([step_values.double(), accepted.double(),
+                               overflow.double().reshape(1),
+                               carry["x_prev"][ntheta - ncov:].double()]))
+        fit_counts["steps_accepted"] += int(out[S:2 * S].sum())
+        tail = out[2 * S + 1:]
+        if not np.all(np.isfinite(out[:S])):
+            raise FloatingPointError("optimizer diverged to non-finite objective")
+        if out[2 * S]:
+            carry = grow(carry)
+            # as in the reference, the restarted carry's last evaluated
+            # point is the current one, and this dispatch's row shows it
+            tail = _host(carry["x_prev"][ntheta - ncov:].double())
+        return carry, out[None, :S], 0, _fc_from_tail(fused, tail, ntheta) if ncov else None
 
-        def checkpoint(it_base):
-            fit_counts["checkpoints"] += 1
-            with span("checkpoint"):
-                theta = theta_host()
-                # never leave a non-finite step_*_X.npy for the analysis to read
-                if not np.all(np.isfinite(theta)):
-                    raise FloatingPointError("optimizer diverged to non-finite theta")
-                X, FC = fused.unpack_host(theta)
-                # the index of this dispatch's last logged row, so the analysis
-                # finds a checkpoint for the final step
-                save_step(d, it_base + S - 1, X=X, FC=FC)
-                save_optimizer_state(d, carry, it_base + S)
-
-        try:
-            while it < max_iters and time.time() - t0 < maxsec:
-                with span("dispatch"):
-                    carry, (step_values, accepted, _, overflow) = runner.run_fn(carry)
-                    # the cov tail of the last EVALUATED point (x_prev; carry["x"]
-                    # is the next proposal), so the covs.txt row pairs with the
-                    # logged objective
-                    out = _host(torch.cat([step_values.double(), accepted.double(),
-                                           overflow.double().reshape(1),
-                                           carry["x_prev"][ntheta - ncov:].double()]))
-                    values = -out[:S]  # stored as nll, logged as ll
-                    fit_counts["steps_accepted"] += int(out[S:2 * S].sum())
-                    tail = out[2 * S + 1:]
-                    if not np.all(np.isfinite(values)):
-                        raise FloatingPointError("optimizer diverged to non-finite objective")
-                    if out[2 * S]:
-                        carry = runner.grow(carry)
-                        # as in the reference, the restarted carry's last evaluated
-                        # point is the current one, and this dispatch's row shows it
-                        tail = _host(carry["x_prev"][ntheta - ncov:].double())
-                    now = time.time() - t0
-                    for k, v in enumerate(values):
-                        f_log.write("%d %.2f %.2f\n" % (it + k, now, float(v)))
-                    f_log.flush()
-                    if covf is not None:
-                        covf.write("%d %s\n" % (it + S - 1, _fc_from_tail(fused, tail, ntheta)))
-                        covf.flush()
-                if now - last_ckpt >= ckpt_every_sec:
-                    checkpoint(it)
-                    last_ckpt = now
-                it += S
-                best = float((-values).min())
-                if prev_best - best < ftol * (abs(prev_best) + 1e-12):
-                    stall += 1  # noise-tolerant: several stalled dispatches in a row
-                    if stall >= stall_patience:
-                        break
-                else:
-                    stall = 0
-                prev_best = min(prev_best, best)
-            if it:
-                checkpoint(it - S)
-        finally:
-            f_log.write("optimization finished after %.fs\n" % (time.time() - t0))
-            f_log.close()
-            if covf is not None:
-                covf.close()
-            with open(os.path.join(d, "finished"), "w") as f:
-                f.write("")
-            fit.write(d, fused.m)
-        return theta_host()
+    plan = _Plan(S, max_iters, maxsec, ftol, stall_patience, mode="a" if appending else "w",
+                 files=("log.txt", "covs.txt") if ncov else ("log.txt",),
+                 unpack=fused.unpack_host, ckpt_every_sec=ckpt_every_sec, save_state=True)
+    x0 = torch.as_tensor(np.asarray(theta0).reshape(-1), dtype=fused.dtype, device=fused.device)
+    return _dispatch_loop(d, fused, plan, read, x0, carry, it)[0]
 
 
 def do_optimization_fused(d, fused, X0, maxsec: float = 3600, max_iters: int = 400,
@@ -481,112 +573,53 @@ def _check_capacity_all(fused, thetas):
     return all(fused.check_capacity(t) for t in thetas)
 
 
-def _run_multistart(d, fused, theta0s, unpack_fn, write_covs, maxsec, max_iters,
-                    steps_per_dispatch, ftol, ckpt_every_sec: float = 10.0,
-                    stall_patience: int = 4):
-    """The multistart loop: R replicas in one runner, per-replica stall
-    tracking (the run ends only when no replica still improves), restarts
-    of diverged replicas, ``multistart.txt`` (a row per iteration, a column
-    per replica) and the standard file protocol written for the currently
-    best replica.  The checkpointed and returned point is the winner's last
-    evaluated point ``x_prev`` (whose value is ``v``).
+def _run_multistart(d, fused, theta0s, unpack, write_covs, maxsec, max_iters,
+                    steps_per_dispatch, ftol, stall_patience):
+    """The multistart driver: R replicas in one runner, the stall rule per
+    replica, restarts of diverged replicas, ``multistart.txt`` and the
+    standard file protocol written for the currently best replica, whose
+    last evaluated point ``x_prev`` (value ``v``) is checkpointed and
+    returned.
 
     Per dispatch the host reads the [R, steps] values and acceptance, the
-    health mask, the [R] overflow flags and the winner's cov tail; the
-    [R, n] thetas cross on the ``ckpt_every_sec`` cadence and after the last
-    dispatch.  On an overflow every replica grows together and keeps its
-    curvature memory (:class:`GrowingRunner`, restarted at ``x_prev``).
-    ``counters.json`` is written beside ``finished``; its ``steps_accepted``
-    sums the replicas' accepted steps, its ``replica_restarts`` the
-    restarts.  The health read and the restarts are the span
-    ``replica_health``."""
-    dev, dtype = fused.device, fused.dtype
+    health mask (the span ``replica_health``, with the restarts), the [R]
+    overflow flags, the values ``v`` and, with covs, the winner's cov tail.
+    On an overflow every replica grows together (:class:`GrowingRunner`,
+    restarted at ``x_prev``).  In ``counters.json``, ``steps_accepted``
+    sums the replicas' accepted steps and ``replica_restarts`` counts the
+    restarts."""
     theta0s = np.asarray(theta0s, dtype=np.float64)
-    R, ntheta = theta0s.shape
+    ntheta = theta0s.shape[1]
     S = steps_per_dispatch
-    with profiling.fit(fused.m, replicas=R) as fit:
-        runner = GrowingRunner(fused, S)
-        carry = runner.init_fn(torch.as_tensor(theta0s, dtype=dtype, device=dev))
-        f_log = open(os.path.join(d, "log.txt"), "w")
-        f_ms = open(os.path.join(d, "multistart.txt"), "w")
-        ncov = fused.ncov if write_covs else 0
-        covf = open(os.path.join(d, "covs.txt"), "w") if ncov else None
-        t0 = time.time()
-        it = 0
-        prev_best = np.full((R,), np.inf)
-        stall = 0
-        last_ckpt = -np.inf
+    ncov = fused.ncov if write_covs else 0
 
-        def checkpoint(it_base):
-            fit_counts["checkpoints"] += 1
-            with span("checkpoint"):
-                thetas = _host(carry["x_prev"].double())
-                best_r = int(_host(torch.argmin(carry["v"])))
-                X, FC = unpack_fn(thetas[best_r])
-                save_step(d, it_base + S - 1, X=X, FC=FC)
+    def read(carry, outs, it, grow):
+        values, accepted, _, overflow = outs
+        # [R, steps] nll, then the steps' acceptance
+        out = _host(torch.cat([values.double(), accepted.double()], dim=-1))
+        fit_counts["steps_accepted"] += int(out[:, S:].sum())
+        with span("replica_health"):
+            bad = _host(_replica_bad_mask(carry["x"], carry["v"]))
+            carry, n_restarted = _sanitize_replicas(carry, bad)
+        fit_counts["replica_restarts"] += n_restarted
+        if n_restarted:
+            print("multistart: restarted %d diverged replica(s)" % n_restarted)
+        # a replica just restarted at its last finite point is checked again
+        # at the next dispatch
+        if (_host(overflow) & ~bad).any():
+            carry = grow(carry)
+        winner = int(np.argmin(_host(carry["v"].double())))
+        fc = None
+        if ncov:
+            fc = _fc_from_tail(fused, _host(carry["x_prev"][winner, ntheta - ncov:].double()),
+                               ntheta)
+        return carry, out[:, :S], winner, fc
 
-        try:
-            while it < max_iters and time.time() - t0 < maxsec:
-                with span("dispatch"):
-                    carry, (values, accepted, _, overflow) = runner.run_fn(carry)
-                    # [R, steps] nll, then the steps' acceptance
-                    out = _host(torch.cat([values.double(), accepted.double()], dim=-1))
-                    vals = out[:, :S]
-                    fit_counts["steps_accepted"] += int(out[:, S:].sum())
-                    with span("replica_health"):
-                        bad = _host(_replica_bad_mask(carry["x"], carry["v"]))
-                        carry, n_restarted = _sanitize_replicas(carry, bad)
-                    fit_counts["replica_restarts"] += n_restarted
-                    if n_restarted:
-                        print("multistart: restarted %d diverged replica(s)" % n_restarted)
-                    # a replica just restarted at its last finite point is checked
-                    # again at the next dispatch
-                    if (_host(overflow) & ~bad).any():
-                        carry = runner.grow(carry, at="x_prev")
-                    now = time.time() - t0
-                    cur_v = _host(carry["v"].double())
-                    best_r = int(np.argmin(cur_v))
-                    for k in range(vals.shape[1]):
-                        f_ms.write("%d %.2f %s\n" % (it + k, now,
-                                                     " ".join("%.2f" % (-v) for v in vals[:, k])))
-                        f_log.write("%d %.2f %.2f\n" % (it + k, now, float(-vals[best_r, k])))
-                    f_ms.flush()
-                    f_log.flush()
-                    if covf is not None:
-                        tail = _host(carry["x_prev"][best_r, ntheta - ncov:].double())
-                        covf.write("%d %s\n" % (it + S - 1, _fc_from_tail(fused, tail, ntheta)))
-                        covf.flush()
-                if now - last_ckpt >= ckpt_every_sec:
-                    checkpoint(it)
-                    last_ckpt = now
-                it += S
-                # per-replica progress; a diverged replica's NaN column counts as
-                # +inf, so that it can register improvement after its restart
-                vals_f = np.where(np.isfinite(vals), vals, np.inf)
-                best_per = np.minimum(prev_best, vals_f.min(axis=1))
-                improved = prev_best - best_per >= ftol * (np.abs(prev_best) + 1e-12)
-                if not improved.any():
-                    stall += 1
-                    if stall >= stall_patience:
-                        break
-                else:
-                    stall = 0
-                prev_best = best_per
-            if it:
-                # the analysis reads the checkpoint of the last logged step
-                checkpoint(it - S)
-        finally:
-            f_log.write("optimization finished after %.fs\n" % (time.time() - t0))
-            f_log.close()
-            f_ms.close()
-            if covf is not None:
-                covf.close()
-            with open(os.path.join(d, "finished"), "w") as f:
-                f.write("")
-            fit.write(d, fused.m)
-        final_v = _host(carry["v"].double())
-        best_r = int(np.argmin(final_v))
-        return _host(carry["x_prev"][best_r].double()), float(final_v[best_r]), final_v
+    plan = _Plan(S, max_iters, maxsec, ftol, stall_patience, at="x_prev",
+                 files=("log.txt", "covs.txt") if ncov else ("log.txt",), unpack=unpack)
+    x0s = torch.as_tensor(theta0s, dtype=fused.dtype, device=fused.device)
+    theta, final_v = _dispatch_loop(d, fused, plan, read, x0s)
+    return theta, float(final_v.min()), final_v
 
 
 def do_optimization_multistart(d, fused, X0s, maxsec: float = 3600, max_iters: int = 400,
@@ -599,7 +632,7 @@ def do_optimization_multistart(d, fused, X0s, maxsec: float = 3600, max_iters: i
     shape = X0s.shape[1:]
     return _run_multistart(d, fused, X0s.reshape(X0s.shape[0], -1),
                            lambda t: (t.reshape(shape), None), False, maxsec, max_iters,
-                           steps_per_dispatch, ftol, stall_patience=stall_patience)
+                           steps_per_dispatch, ftol, stall_patience)
 
 
 def do_optimization_multistart_theta(d, fused, theta0s, maxsec: float = 3600,
@@ -611,7 +644,7 @@ def do_optimization_multistart_theta(d, fused, theta0s, maxsec: float = 3600,
     covs.txt), the per-replica objectives in ``multistart.txt``.  Returns
     (best_theta, best_v, final_values [R])."""
     return _run_multistart(d, fused, theta0s, fused.unpack_host, True, maxsec, max_iters,
-                           steps_per_dispatch, ftol, stall_patience=stall_patience)
+                           steps_per_dispatch, ftol, stall_patience)
 
 
 # ---- the float64 tail ------------------------------------------------------------
@@ -637,7 +670,9 @@ def refine_f64(d, make_fused, x32, it0, iters: int = 60, steps_per_dispatch: int
     ``GPRF_REFINE_MAXSEC`` overrides ``maxsec``; the phase stops after two
     dispatches in a row that improve the best objective by less than 1e-9
     relative.  Unlike the reference, a block that outgrows the capacity
-    grows it (:class:`GrowingRunner`) instead of dropping points.
+    grows it (:class:`GrowingRunner`) instead of dropping points.  It
+    writes no ``finished`` marker and no ``counters.json``: the run's
+    float32 loop wrote them.
 
     Returns the final flat vector (float64 on the host)."""
     maxsec = float(os.environ.get("GPRF_REFINE_MAXSEC", maxsec))
@@ -654,49 +689,18 @@ def refine_f64(d, make_fused, x32, it0, iters: int = 60, steps_per_dispatch: int
         steps_per_dispatch = min(steps_per_dispatch, 2)
     print("refine_f64: running the f64 tail on %s" % (fused.device,))
     S = steps_per_dispatch
-    with profiling.fit(fused.m):
-        runner = GrowingRunner(fused, S)
-        carry = runner.init_fn(torch.as_tensor(np.asarray(x32, dtype=np.float64),
-                                               device=fused.device))
-        f_log = open(os.path.join(d, "log.txt"), "a")
-        # opened at the first cov row: a task=x run grows no empty covs.txt
-        covf = None
-        t0 = time.time()
-        it = it0
-        prev_best = np.inf
-        stall = 0
-        try:
-            while it < it0 + iters and time.time() - t0 < maxsec:
-                with span("dispatch"):
-                    carry, (step_values, _, _, overflow) = runner.run_fn(carry)
-                    out = _host(torch.cat([step_values, overflow.double().reshape(1)]))
-                    values = -out[:S]
-                    if out[S]:
-                        carry = runner.grow(carry)
-                    step_idx = it + S - 1
-                    X, FC = fused.unpack_host(_host(carry["x"]))
-                    save_step(d, step_idx, X=X, FC=FC)
-                    if FC is not None:
-                        if covf is None:
-                            covf = open(os.path.join(d, "covs.txt"), "a")
-                        covf.write("%d %s\n" % (step_idx, FC))
-                        covf.flush()
-                    now = time.time() - t0
-                    for k, v in enumerate(values):
-                        f_log.write("%d %.2f %.2f\n" % (it + k, now, float(v)))
-                    f_log.flush()
-                it += S
-                best = float((-values).min())
-                if prev_best - best < 1e-9 * (abs(prev_best) + 1e-12):
-                    stall += 1
-                    if stall >= 2:
-                        break
-                else:
-                    stall = 0
-                prev_best = min(prev_best, best)
-        finally:
-            f_log.write("f64 refinement finished after %.fs\n" % (time.time() - t0))
-            f_log.close()
-            if covf is not None:
-                covf.close()
-        return _host(carry["x"])
+
+    def read(carry, outs, it, grow):
+        step_values, _, _, overflow = outs
+        out = _host(torch.cat([step_values, overflow.double().reshape(1)]))
+        if out[S]:
+            carry = grow(carry)
+        # a step file every dispatch, inside it
+        X, FC = fused.unpack_host(_host(carry["x"]))
+        save_step(d, it + S - 1, X=X, FC=FC)
+        return carry, out[None, :S], 0, FC
+
+    plan = _Plan(S, it0 + iters, maxsec, 1e-9, 2, mode="a",
+                 trailer="f64 refinement finished after %.fs\n", finish=False)
+    x0 = torch.as_tensor(np.asarray(x32, dtype=np.float64), device=fused.device)
+    return _dispatch_loop(d, fused, plan, read, x0, it=it0)[0]

@@ -31,6 +31,9 @@ restarted after they diverged (0 on a single-start fit).
 **The device trace.** :func:`device_trace` records the block with
 ``torch.profiler`` and writes a Chrome trace (Perfetto reads it) with the
 recorded spans on a track of their own above the kernels.
+:func:`kernel_events` and :func:`device_busy` read the kernels of a few
+loss+gradient calls from such a trace, and :func:`splits_at` names the
+compositions that split at a block width.
 """
 
 from __future__ import annotations
@@ -215,3 +218,42 @@ def device_trace(log_dir: str | None):
                                               trace.get("baseTimeNanoseconds", 0)))
     with open(path, "w") as f:
         json.dump(trace, f)
+
+
+def kernel_events(loss, x0, calls=5):
+    """(name, device us) of every kernel a ``torch.profiler`` trace records
+    over ``calls`` calls of one loss+gradient on a CUDA device, after one
+    warm call (copies and memsets left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gprf_torch.optim.lbfgs import value_and_grad
+
+    value_and_grad(loss, x0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            value_and_grad(loss, x0)
+        torch.cuda.synchronize()
+    kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no kernel on the device")
+    return kernels
+
+
+def device_busy(loss, x0, calls=5):
+    """(device-busy ms, kernel launches) of one loss+gradient on a CUDA
+    device: :func:`kernel_events` summed, per call."""
+    kernels = kernel_events(loss, x0, calls)
+    return sum(us for _, us in kernels) / 1e3 / calls, len(kernels) / calls
+
+
+def splits_at(m: int, dy: int) -> list[str]:
+    """The compositions of :mod:`gprf_torch.ops.split_mvn` that split at
+    block width m (their leaves run the kernels on halves)."""
+    from gprf_torch.ops import mvn, split_mvn
+
+    caps = {"chol_inv": split_mvn.LEAF_CHOL, "mvn_ll": mvn.mvn_max_m(dy),
+            "tri_inv": split_mvn.LEAF_TRI}
+    return [name for name, cap in caps.items() if m > cap]

@@ -3,8 +3,8 @@
 
     python3 scripts/torch_multistart_divergence.py [--steps 10]
 
-On the bench's problem (gprf_torch.bench.build_problem: n = 10,000, 100
-grid blocks, m = 136, Y iid noise), three starts (the observed X and two
+On chip_smoke.py's flagship problem (``chip_smoke.build_problem``: n =
+10,000, 100 grid blocks, m = 136, Y iid noise), three starts (the observed X and two
 perturbations at the observation prior's scale) advance together in one
 batch (the replicas folded into the kernels' batch) and each alone, with
 float32 and with float64 scalar tails.  Prints, per replica and step, the
@@ -25,7 +25,7 @@ def main(argv=None):
     import torch
 
     import gprf_torch  # noqa: F401  (float32 precision pins)
-    from gprf_torch.bench import build_problem
+    from chip_smoke import build_problem
     from gprf_torch.optim.lbfgs import make_multistart_runner, make_scan_lbfgs_runner
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -35,7 +35,7 @@ def main(argv=None):
         raise SystemExit("torch_multistart_divergence.py: no CUDA device")
     np.set_printoptions(precision=3)
     for acc in (None, torch.float64):
-        fused, X_obs = build_problem("cuda", torch.float32, acc_dtype=acc)
+        fused, X_obs = build_problem(torch, "cuda", acc_dtype=acc)
         x = X_obs.reshape(-1)
         rng = np.random.default_rng(2)
         x0s = np.stack([x] + [x + rng.standard_normal(x.shape) * 0.02 for _ in range(2)])

@@ -41,7 +41,6 @@ def measure(fused, theta, chunk, reference, busy):
     "whole"); ``reference`` (value, gradient) or None."""
     import torch
 
-    from gprf_torch.bench import device_busy
     from gprf_torch.model.objective import PAIR_BUFFERS
     from gprf_torch.optim.lbfgs import value_and_grad
     from gprf_torch.utils import profiling
@@ -73,7 +72,8 @@ def measure(fused, theta, chunk, reference, busy):
             times.append((time.perf_counter() - t0) * 1e3)
         record.update(ms=statistics.median(times))
         if busy:
-            record["device_busy_ms"], record["launches"] = device_busy(loss, theta, calls=2)
+            record["device_busy_ms"], record["launches"] = profiling.device_busy(loss, theta,
+                                                                                 calls=2)
         if reference is not None:
             v0, g0 = reference
             g64, g064 = g.double().flatten(), g0.double().flatten()

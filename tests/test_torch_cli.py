@@ -1,11 +1,10 @@
-"""gprf_torch.cli.gprfopt, the results protocol, the FLOP model and the
-bench against gprf_tpu, on the CPU in float64 (the port's ``--device cpu``;
-``do_run``'s ``dtype`` is float64 here so that whole optimizations can be
-held to rtol 1e-6, the command line's own float32 run is checked for its
-files and its progress)."""
+"""gprf_torch.cli.gprfopt and the results protocol against gprf_tpu, on the
+CPU in float64 (the port's ``--device cpu``; ``do_run``'s ``dtype`` is
+float64 here so that whole optimizations can be held to rtol 1e-6, the
+command line's own float32 run is checked for its files and its
+progress)."""
 
 import argparse
-import json
 import os
 
 import numpy as np
@@ -17,11 +16,8 @@ from gprf_tpu.cli import gprfopt as jcli
 from gprf_tpu.data.sampled import sample_data as j_sample_data
 from gprf_tpu.model import fused as jfused
 from gprf_tpu.partition.grid import grid_centers
-from gprf_tpu.utils import flops as jflops
-from gprf_torch import bench as tbench
 from gprf_torch.analysis import results as tresults
 from gprf_torch.cli import gprfopt as tcli
-from gprf_torch.utils import flops as tflops
 
 torch.set_num_threads(1)
 RTOL = 1e-6
@@ -319,26 +315,3 @@ def test_do_run_refuses_what_the_command_line_refuses(exp):
         tcli.do_run(str(exp), device="cpu", task="y", **SMALL)
     with pytest.raises(ValueError, match="GPLVM baselines use the host engine"):
         jcli.do_run(str(exp), engine="device", gplvm_type="sparse", **SMALL)
-
-
-@pytest.mark.parametrize("shape", [dict(B=100, m=136, E=180, dy=50, dx=2),
-                                   dict(B=100, m=152, E=342, dy=50, dx=2, passes=1.0),
-                                   dict(B=9, m=56, E=20, dy=4, dx=2)])
-def test_model_flops_per_eval_matches_jax(shape):
-    assert tflops.model_flops_per_eval(**shape) == jflops.model_flops_per_eval(**shape)
-    assert tflops.PEAK_F32_FLOPS == 67e12  # the card's, not the reference's chip's
-    assert "of the float32 peak" in tflops.roofline_str(1e12, 1.0)
-
-
-def test_bench_measures_a_small_problem_on_the_cpu():
-    record = tbench.run("cpu", dtype=torch.float64, n=300, nblocks=9, yd=3, lscale=0.15,
-                        log=lambda msg: None)
-    assert record["lbfgs_evals"] == 100 and record["edges"] == 12
-    for k in ("dispatch_eval_ms", "lbfgs_eval_ms", "gflops", "model_gflop_per_eval"):
-        assert np.isfinite(record[k]) and record[k] > 0
-    assert record["m_final"] >= record["m_start"]
-    assert record["m_final"] == record["m_start"] + 16 * len(record["capacity_growths"])
-    assert record["splits_at_m_final"] == [] and tbench.splits_at(232, 50) == ["mvn_ll", "tri_inv"]
-    # off the card there is no device time and no share of the card's peak
-    assert record["device_busy_ms_per_eval"] is None and record["share_of_f32_peak"] is None
-    assert record["card"] is None and json.loads(json.dumps(record)) == record

@@ -965,15 +965,6 @@ def test_command_line_runs_on_the_card_by_default(dev, tmp_path, monkeypatch, en
     assert np.isfinite(true_row["mll"]) and np.isfinite(final["mll"])
 
 
-def test_bench_record_on_the_card(dev):
-    from gprf_torch import bench
-
-    record = bench.run(dev, n=2000, nblocks=25, yd=10, lscale=0.1, log=lambda msg: None)
-    assert record["device_busy_ms_per_eval"] > 0 and record["device_launches_per_eval"] > 0
-    assert 0 < record["share_of_f32_peak"] < 1 and "," in record["card"]
-    assert record["lbfgs_eval_ms"] > 0 and record["dispatch_eval_ms"] > 0
-
-
 # ---- the seismic slice -------------------------------------------------------------
 
 

@@ -316,6 +316,90 @@ def test_resume_drops_log_rows_past_the_saved_state(tmp_path):
     tlbfgs._truncate_log_rows(str(tmp_path / "absent.txt"), 2)  # no file: nothing to do
 
 
+def _single_start_rule(blocks, tol, patience):
+    """The rule as gprf_tpu's single-start drivers state it, on a scalar
+    best: the index of the dispatch it stops after, or None."""
+    prev_best, stall = np.inf, 0
+    for i, nll in enumerate(blocks):
+        best = float(np.min(nll))
+        if prev_best - best < tol * (abs(prev_best) + 1e-12):
+            stall += 1
+            if stall >= patience:
+                return i
+        else:
+            stall = 0
+        prev_best = min(prev_best, best)
+    return None
+
+
+def _replica_rule(blocks, tol, patience):
+    """The rule as gprf_tpu's multistart driver states it, per replica."""
+    prev_best, stall = np.inf, 0
+    for i, nll in enumerate(blocks):
+        nll = np.asarray(nll, dtype=float)
+        best = np.minimum(prev_best, np.where(np.isfinite(nll), nll, np.inf).min(axis=1))
+        with np.errstate(invalid="ignore"):
+            improved = prev_best - best >= tol * (np.abs(prev_best) + 1e-12)
+        if not improved.any():
+            stall += 1
+            if stall >= patience:
+                return i
+        else:
+            stall = 0
+        prev_best = best
+    return None
+
+
+NAN = float("nan")
+# name -> (tol, patience, nll [R, steps] of each dispatch, the dispatch the
+# run stops after (None: it goes on))
+STALL_CASES = {
+    # the first dispatch improves on +inf; a gain below 1e-6 relative, or a
+    # worse dispatch, stalls; 0.01 resets the count
+    "single start": (1e-6, 4, [[[100.0, 90.0]], [[80.0, 85.0]], [[80.0 - 1e-5, 81.0]],
+                               [[85.0, 86.0]], [[79.99, 80.0]], [[79.99, 79.99]],
+                               [[80.0, 90.0]], [[79.99, 79.99]], [[90.0, 91.0]]], 8),
+    # at ftol 0 only a dispatch worse than the best so far stalls
+    "single start at ftol 0": (0.0, 4, [[[5.0, 4.0]], [[4.5, 4.5]], [[4.0, 4.0]], [[6.0, 6.0]],
+                                        [[6.0, 6.0]], [[6.0, 6.0]], [[5.0, 5.0]]], 6),
+    "single start that never stalls": (1e-6, 2, [[[3.0, 2.0]], [[1.0, 1.0]], [[-1.0, -2.0]]],
+                                       None),
+    # replica 2 diverges in the second dispatch and is restarted: its NaN
+    # column improves nothing, its first finite values after the restart do;
+    # the run stops only when no replica improves
+    "replicas with a NaN column after a restart": (
+        1e-6, 2, [[[10.0, 9.0], [20.0, 19.0], [30.0, NAN]],
+                  [[9.0, 9.0], [19.0, 19.0], [NAN, NAN]],
+                  [[9.0, 9.0], [19.0, 19.0], [29.0, 28.0]],
+                  [[9.0, 9.0], [19.0, 18.0], [28.0, 28.0]],
+                  [[9.0, 9.0], [18.0, 18.0], [28.0, 28.0]],
+                  [[9.0, 9.0], [18.0, 18.0], [28.0, 28.0]]], 5),
+    "a replica that is NaN from the start": (
+        1e-6, 2, [[[5.0, 5.0], [NAN, NAN]], [[5.0, 5.0], [NAN, NAN]], [[5.0, 5.0], [7.0, 6.0]],
+                  [[5.0, 5.0], [6.0, 6.0]], [[5.0, 5.0], [6.0, 6.0]]], 4),
+    # the float64 tail's: 1e-9 relative, two dispatches in a row
+    # 1e-5 below 1000.5 is 1e-8 relative, 1e-7 below 1000.6 is 1e-10
+    "refine_f64": (1e-9, 2, [[[-1000.0, -1000.5]], [[-1000.5, -1000.5]],
+                             [[-1000.5 - 1e-5, -1000.5]], [[-1000.6, -1000.6]],
+                             [[-1000.6 - 1e-7, -1000.6]], [[-1000.6, -1000.6]]], 5),
+}
+
+
+@pytest.mark.parametrize("case", list(STALL_CASES))
+def test_the_drivers_share_one_stall_rule(case):
+    """One rule on [R, steps] blocks of objective values serves the single
+    start (R = 1), the replicas and the float64 tail; it stops where the
+    reference's single-start rule does at R = 1 and where its per-replica
+    rule does at any R, for a tol above 0."""
+    tol, patience, blocks, stop = STALL_CASES[case]
+    rule = tlbfgs._Stall(tol, patience)
+    assert [rule(np.asarray(nll)) for nll in blocks] == [i == stop for i in range(len(blocks))]
+    if len(blocks[0]) == 1:
+        assert _single_start_rule(blocks, tol, patience) == stop
+    if tol > 0:
+        assert _replica_rule(blocks, tol, patience) == stop
+
+
 def test_fc_from_tail_matches_jax(data):
     for task in ("cov", "xcov"):
         tf, jf = _fused_pair(data, task)

@@ -1,6 +1,7 @@
 """gprf_torch as a package: it imports without JAX, pins float32 products to
-full precision, and chip_smoke.py, the CLI and the bench refuse to run
-without a CUDA device unless the CPU is asked for."""
+full precision, chip_smoke.py and the CLI refuse to run without a CUDA
+device unless the CPU is asked for, and the device loop stands below the
+command line."""
 
 import importlib.util
 import os
@@ -25,7 +26,7 @@ def _modules():
 
 
 def test_the_import_check_covers_the_entry_points():
-    assert {"gprf_torch.cli.gprfopt", "gprf_torch.bench", "gprf_torch.data.sampled",
+    assert {"gprf_torch.cli.gprfopt", "gprf_torch.optim.lbfgs", "gprf_torch.data.sampled",
             "gprf_torch.data.synthetic", "gprf_torch.analysis.results",
             "gprf_torch.model.gprf", "gprf_torch.optim.driver",
             "gprf_torch.partition.layout", "gprf_torch.cli.run_seismic",
@@ -108,7 +109,6 @@ def test_kernel_build_is_lazy_and_keyed_on_the_sources():
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal where there is no GPU")
 def test_cli_and_bench_default_to_the_card_and_raise_without_one(tmp_path, monkeypatch):
     """Nothing carries on on the CPU unless ``--device cpu`` asks for it."""
-    from gprf_torch import bench
     from gprf_torch.cli import gprfopt
 
     monkeypatch.setenv("GPRF_EXPERIMENTS", str(tmp_path))
@@ -119,17 +119,13 @@ def test_cli_and_bench_default_to_the_card_and_raise_without_one(tmp_path, monke
             gprfopt.main(argv + ["--engine", engine])
     with pytest.raises(RuntimeError, match="--device cpu"):
         gprfopt.do_run(str(tmp_path), 0.2, 110, 100, 4, 3)
-    with pytest.raises(RuntimeError, match="--device cpu"):
-        bench.main([])
-    with pytest.raises(RuntimeError, match="--device cpu"):
-        bench.run("cuda")
     assert os.listdir(tmp_path) == []  # refused before anything was sampled or written
 
 
-def test_the_bench_does_not_load_the_command_line_layer():
-    """The measurement layer stands below the command line: importing it
+def test_the_dispatch_loop_does_not_load_the_command_line_layer():
+    """The device loop's layer stands below the command line: importing it
     loads neither the CLI nor the data, analysis and scipy-driver modules."""
-    code = ("import sys, gprf_torch.bench\n"
+    code = ("import sys, gprf_torch.optim.lbfgs\n"
             "layers = ('gprf_torch.cli', 'gprf_torch.data', 'gprf_torch.analysis',"
             " 'gprf_torch.optim.driver')\n"
             "bad = [m for m in sys.modules if m.startswith(layers)]\n"

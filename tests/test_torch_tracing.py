@@ -133,6 +133,45 @@ def test_counters_json_of_a_fit(tmp_path):
     assert c["launches"] == dict.fromkeys(mvn.launch_counts, 0)  # the CPU runs the twins
 
 
+@pytest.mark.parametrize("covs", [False, True])
+def test_counters_json_of_a_multistart_fit(tmp_path, covs):
+    """The multistart driver reads the card 4 times a dispatch (the values
+    with the acceptance, the replicas' health, the overflow flags, the
+    values v) and once more for the winner's cov tail where there are
+    covs; 2 times a checkpoint (the values v, the winner's point)."""
+    if covs:
+        fused = _seismic()
+        lbfgs.do_optimization_multistart_theta(str(tmp_path), fused, _seismic_thetas(fused, 2),
+                                               max_iters=2 * STEPS, steps_per_dispatch=STEPS)
+    else:
+        fused = _fused()
+        X0s = np.stack([fused.X0, fused.X0 + 0.01])
+        lbfgs.do_optimization_multistart(str(tmp_path), fused, X0s, max_iters=2 * STEPS,
+                                         steps_per_dispatch=STEPS)
+    c = _counters(tmp_path)
+    assert c["replicas"] == 2 and c["dispatches"] == 2 and c["steps"] == 2 * STEPS
+    assert c["steps"] == c["evaluations"] - 1 - c["capacity_growths"]
+    assert 0 < c["steps_accepted"] <= 2 * c["steps"] and c["replica_restarts"] == 0
+    # the first dispatch on the 10 s cadence, and the last
+    assert 2 <= c["checkpoints"] <= c["dispatches"] + 1
+    assert c["host_syncs"] == (5 if covs else 4) * c["dispatches"] + 2 * c["checkpoints"]
+    assert os.path.exists(tmp_path / "covs.txt") == covs
+
+
+def test_refine_reads_the_card_twice_a_dispatch(tmp_path):
+    """The float64 tail reads the step values with the overflow flag, and
+    the point of its step file: 2 reads a dispatch, one more for the point
+    it returns, and no checkpoint of the cadence; it leaves no ``finished``
+    and no ``counters.json`` (the float32 loop writes them)."""
+    fused = _fused()
+    lbfgs.refine_f64(str(tmp_path), lambda dtype: fused, fused.theta0(), 0, iters=2 * STEPS,
+                     steps_per_dispatch=STEPS)
+    c = profiling.fit_counts
+    assert c["dispatches"] == 2 and c["steps"] == 2 * STEPS and c["checkpoints"] == 0
+    assert c["host_syncs"] == 2 * c["dispatches"] + 1
+    assert sorted(os.listdir(tmp_path)) == ["log.txt", "step_00003_X.npy", "step_00007_X.npy"]
+
+
 @pytest.mark.parametrize("pair_chunk", [None, 4])
 def test_counters_json_counts_the_pair_chunks(tmp_path, pair_chunk):
     """One pair pass an evaluation: whole on the CPU's rule at this m, or
