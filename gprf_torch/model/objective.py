@@ -12,7 +12,11 @@ so the unary pass runs K1 (chol_inv) over all blocks, and the pair pass
 runs K2 (mvn_ll) over every Schur complement, both through the split
 compositions of :mod:`gprf_torch.ops.split_mvn`.  Every "solve" is then a
 batched matrix product with the explicit inverse factor, which the noise
-jitter keeps well conditioned.
+jitter keeps well conditioned.  The conditional of block j on block i,
+S and the residual Y_j - B^T W_i Y_i, is one autograd Function
+(:class:`SchurConditional`): the subtraction in the products' epilogue,
+only the blocks of S that the split reads, and one product of width m in
+its backward where autograd's would run two.
 
 Two routes of the reference run other kernels; each is an explicit option
 (the reference reads them from the environment):
@@ -72,7 +76,8 @@ from gprf_torch.linalg.doubling import batched_tri_inv_doubling
 from gprf_torch.linalg.masked import masked_gaussian_ll, pad_kernel_matrix
 from gprf_torch.ops import se_kernel
 from gprf_torch.ops.mvn import KERNEL_OPS, Ops
-from gprf_torch.ops.split_mvn import chol_inv_split, cholesky_split, mvn_ll_split
+from gprf_torch.ops.split_mvn import (chol_inv_split, cholesky_split, gram_read_blocks_cotangent,
+                                     mvn_ll_split, mvn_split_width, sub_gram_read_blocks_)
 from gprf_torch.utils.profiling import fit_counts, span
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -81,13 +86,16 @@ _LOG_2PI = math.log(2.0 * math.pi)
 # replica, from what its backward keeps: the masked Kij, the gathered W_i,
 # B and S, mvn_ll_split's blocks and factors (about 2), and the backward's
 # gradients of those.  Above what was resident, with the unary pass in it,
-# an H100 read 9.3 buffers an edge at m = 896 over 342 edges at R = 1 in
-# float32 (10.2 GB), 9.2 at R = 4 and 10.1 in float64 on LINALG_OPS, since
-# the SE kernel keeps no intermediate of the kernel matrices.  16 stays: a
-# covariance the kernel does not serve composes them eagerly, and that path
-# held 14.5, 14.4 and 15.2; and no choice would change at half an H100, where
-# R = 4 at 80k needs two chunks at any count above 9.7.
-PAIR_BUFFERS = 16
+# an H100 read at m = 896 over 342 edges: 7.6 buffers an edge at R = 1 and
+# 7.5 at R = 4 in float32 through the SE kernel, 10.1 in float64 on
+# LINALG_OPS, and 16.6 in float32 where the kernel matrices are composed
+# eagerly (a Matern-3/2 covariance, which the SE kernel does not serve).
+# 14 keeps each of them within [0.5, 1.25] of the rule's estimate, and
+# changes no choice at half an H100: R = 1 at 80k runs whole at any count
+# under 38, and R = 4 needs two chunks at any count above 9.7.  The eager
+# path holds about 19% more than the estimate: a covariance the SE kernel
+# does not serve relies on the other half of the card for that.
+PAIR_BUFFERS = 14
 # the reference's rule, kept where there is no card: 64 edges past m = 512
 REFERENCE_PAIR_CHUNK = 64
 REFERENCE_CHUNK_PAST_M = 512
@@ -161,6 +169,57 @@ def _batch_terms(X, Y, assignment, mask, cov: GPCov, noise_var, chunk_size):
                       for s in range(0, N, chunk_size)])
 
 
+class SchurConditional(torch.autograd.Function):
+    """The Gaussian conditional of block j on block i in the pair pass,
+
+        S = C - Bm^T Bm,   rhs = Yj - Bm^T Zi,
+
+    of ``C = Kp[ej]`` [..., m, m], ``Yj = Ym[ej]`` [..., m, dy], ``Bm = W_i
+    Kij`` [..., m, m] and ``Zi = Zs[ei]`` [..., m, dy]; returns (S, rhs).
+
+    Each product is one ``baddbmm`` with beta 1 and alpha -1, so the
+    subtraction happens in cuBLAS's epilogue.  S is built in C's storage
+    (``mark_dirty``): C must be a contiguous tensor of the caller's own,
+    such as the gather ``Kp[:, ej]``, that nothing reads again.  Where ``h``
+    is given (the width at which :func:`mvn_ll_split` splits S,
+    :func:`gprf_torch.ops.split_mvn.mvn_split_width`), only the blocks the
+    split reads are built (3/4 of the product; ``sub_gram_read_blocks_``),
+    and S[:h, h:] keeps C's values.
+
+    The backward is exact for the S built and any cotangent (dS need not be
+    symmetric, nor zero where S keeps C): dC = dS, dYj = drhs, dZi = -Bm
+    drhs and dBm = -Bm T - Zi drhs^T, T = dS0 + dS0^T of dS on the blocks
+    built (``gram_read_blocks_cotangent``): one product of width m, where
+    autograd's ``BmmBackward0`` runs two and sums their branches, folded
+    onto the rank-dy term by one ``baddbmm``.  Only Bm and Zi are saved."""
+
+    @staticmethod
+    def forward(ctx, C, Yj, Bm, Zi, h):
+        m, dy = C.shape[-1], Yj.shape[-1]
+        B = Bm.reshape(-1, m, m)
+        sub_gram_read_blocks_(C.view(-1, m, m), B, h)
+        ctx.h = h
+        rhs = torch.baddbmm(Yj.reshape(-1, m, dy), B.mT, Zi.reshape(-1, m, dy), alpha=-1)
+        ctx.mark_dirty(C)
+        ctx.save_for_backward(Bm, Zi)
+        return C, rhs.view(Yj.shape)
+
+    @staticmethod
+    def backward(ctx, dS, drhs):
+        Bm, Zi = ctx.saved_tensors
+        m, dy = Zi.shape[-2:]
+        B, dr = Bm.reshape(-1, m, m), drhs.reshape(-1, m, dy)
+        dBm = dZi = None
+        if ctx.needs_input_grad[2]:
+            T = gram_read_blocks_cotangent(dS.reshape(-1, m, m), ctx.h)
+            dBm = torch.bmm(Zi.reshape(-1, m, dy), dr.mT)
+            dBm = dBm.baddbmm_(B, T, beta=-1, alpha=-1).view(Bm.shape)
+        if ctx.needs_input_grad[3]:
+            dZi = torch.bmm(B, dr).neg_().view(Zi.shape)
+        return (dS if ctx.needs_input_grad[0] else None,
+                drhs if ctx.needs_input_grad[1] else None, dBm, dZi, None)
+
+
 def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
               cov: GPCov, noise_var, acc_dtype=None, ops: Ops = KERNEL_OPS,
               mvn_inv: bool = False, unary_doubling: bool = False, pair_chunk: int | None = None):
@@ -180,8 +239,9 @@ def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
     docstring, and the covariance the kernel matrices' path (``ops.se_kernel``
     where :func:`gprf_torch.ops.se_kernel.serves` it).  ``pair_chunk`` runs
     the pair pass in chunks of that many edges (module docstring).  The
-    running fit's ``pair_passes``, ``pair_chunks`` and ``pair_dummy_edges``
-    count the path taken."""
+    running fit's ``pair_passes``, ``pair_chunks``, ``pair_dummy_edges``
+    and ``pair_schur_blocked`` (chunks whose S was built in the split's
+    blocks) count the path taken."""
     dtype = X.dtype
     acc = dtype if acc_dtype is None else acc_dtype
     R, B, m = assignment.shape
@@ -243,6 +303,8 @@ def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
         return total
 
     # ---- pair pass: K2 (or K4) over every Schur complement against the i-side factor
+    h = mvn_split_width(m, dy, ops)  # where mvn_ll_split splits S, the blocks it reads
+
     def pair_sum(edges_c, pw_c):
         # each chunk, and again in the backward where the remat recomputes it
         with span("pair_pass"):
@@ -253,8 +315,7 @@ def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
             Bm = Ws[:, ei] @ Kij
             # padded rows of Kp[ej] are identity and the matching Bm columns are
             # zero, so S stays padded-masked
-            S = Kp[:, ej] - Bm.mT @ Bm
-            rhs = Ym[:, ej] - Bm.mT @ Zs[:, ei]
+            S, rhs = SchurConditional.apply(Kp[:, ej], Ym[:, ej], Bm, Zs[:, ei], h)
             nbj = torch.sum(maskf[:, ej], dim=-1)
             pair_mvn = mvn_ll_split(S.reshape(R * Ec, m, m), rhs.reshape(R * Ec, m, dy),
                                     nbj.reshape(R * Ec), ops=ops, mvn_inv=mvn_inv)
@@ -263,8 +324,10 @@ def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
 
     edges = edges.long()
     fit_counts["pair_passes"] += 1
+    blocked = int(h is not None)
     if pair_chunk is None or E <= pair_chunk:
         fit_counts["pair_chunks"] += 1
+        fit_counts["pair_schur_blocked"] += blocked
         return total + pair_sum(edges, pair_weights)
     # pad with zero-weight (0, 0) dummy edges to whole chunks: a block
     # against itself has a positive definite Schur complement (the noise
@@ -272,6 +335,7 @@ def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
     nch = -(-E // pair_chunk)
     pad = nch * pair_chunk - E
     fit_counts["pair_chunks"] += nch
+    fit_counts["pair_schur_blocked"] += nch * blocked
     fit_counts["pair_dummy_edges"] += pad
     edges = torch.cat([edges, edges.new_zeros((pad, 2))])
     pair_weights = torch.cat([pair_weights, pair_weights.new_zeros((pad,))])

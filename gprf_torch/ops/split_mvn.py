@@ -55,8 +55,44 @@ def _leaf(leaf, cap, ops, m):
     return cap if ops.leaf_caps else m
 
 
+def mvn_split_width(m: int, dy: int, ops: Ops = KERNEL_OPS, leaf: int | None = None):
+    """The width h of the upper half at which :func:`mvn_ll_split` splits a
+    width-m problem of dy columns (``split_point(m)``), or None where one
+    leaf takes it whole: the one rule of the split and of the pair pass,
+    which builds only the blocks the split reads."""
+    return split_point(m) if m > _leaf(leaf, mvn_max_m(dy), ops, m) else None
+
+
 def _blocks(M, h):
     return M[:, :h, :h], M[:, h:, :h], M[:, h:, h:]
+
+
+def sub_gram_read_blocks_(C, B, h):
+    """C - B^T B for C, B [N, m, m], written into C's storage on the blocks
+    that :func:`mvn_ll_split` reads at split width h (:func:`_blocks`: the
+    left h columns and the lower-right block; every block where h is None),
+    each block one ``baddbmm`` with the subtraction in its epilogue.  The
+    block above the diagonal keeps C's values."""
+    if h is None:
+        return C.baddbmm_(B.mT, B, alpha=-1)
+    C[:, :, :h].baddbmm_(B.mT, B[:, :, :h], alpha=-1)
+    C[:, h:, h:].baddbmm_(B[:, :, h:].mT, B[:, :, h:], alpha=-1)
+    return C
+
+
+def gram_read_blocks_cotangent(G, h):
+    """T = G0 + G0^T of a cotangent G [N, m, m] of
+    :func:`sub_gram_read_blocks_`'s output, G0 being G on the blocks built
+    (every block where h is None): B's gradient is -B T.  Each block of T
+    is written once."""
+    if h is None:
+        return G + G.mT
+    T = torch.empty_like(G)
+    for a, b in ((slice(None, h), slice(None, h)), (slice(h, None), slice(h, None))):
+        torch.add(G[:, a, b], G[:, a, b].mT, out=T[:, a, b])
+    T[:, h:, :h] = G[:, h:, :h]
+    T[:, :h, h:] = G[:, h:, :h].mT
+    return T
 
 
 def _assemble_lower(A, B21, C):
@@ -123,12 +159,11 @@ def mvn_ll_split(Kp, Ym, n_active, leaf_mvn: int | None = None,
     other leaves stay on ``ops.mvn_ll``."""
     m = Kp.shape[-1]
     dy = Ym.shape[-1]
-    leaf_mvn = _leaf(leaf_mvn, mvn_max_m(dy), ops, m)
-    if m <= leaf_mvn:
+    h = mvn_split_width(m, dy, ops, leaf_mvn)
+    if h is None:
         if mvn_inv and mvn_inv_supported(m, dy):
             return ops.mvn_ll_inv(Kp, Ym, n_active)
         return ops.mvn_ll(Kp, Ym, n_active)
-    h = split_point(m)
     A, K21, C = _blocks(Kp, h)
     La, Wa = chol_inv_split(A, leaf_chol, ops)
     z1 = Wa @ Ym[:, :h, :]

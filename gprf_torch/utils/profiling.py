@@ -48,7 +48,7 @@ import torch.autograd.profiler as _autograd_profiler
 
 FIT_COUNTERS = ("evaluations", "steps", "steps_accepted", "dispatches", "host_syncs",
                 "capacity_growths", "checkpoints", "pair_passes", "pair_chunks",
-                "pair_dummy_edges", "replica_restarts")
+                "pair_dummy_edges", "pair_schur_blocked", "replica_restarts")
 SPAN_TRACK = "gprf_torch spans"
 
 

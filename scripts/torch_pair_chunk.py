@@ -10,8 +10,11 @@ unit square, 100 grid blocks with the diagonal edges (342), dy 50, the SE
 kernel at lengthscale 0.021213 and noise 0.01, capacity ``--m``; Y is iid
 normal, since the work does not depend on it.  For the float32 engine on
 the kernels at each R of ``--replicas`` (R folded replicas, as
-``--multistart R`` runs them), and for the float64 tail's engine
-(``LINALG_OPS``, as ``refine_f64`` builds it) at R = 1: the chunk, the pair
+``--multistart R`` runs them), for the float64 tail's engine
+(``LINALG_OPS``, as ``refine_f64`` builds it) at R = 1, and for the float32
+engine at R = 1 under a Matern-3/2 covariance, whose kernel matrices are
+composed eagerly as the seismic covariance's are (the SE kernel serves only
+the SE covariance): the chunk, the pair
 counters of one call, the peak memory (``torch.cuda.max_memory_allocated``)
 and the part of it above the resident, the host-clock ms of one loss+grad
 (median of 3 after a warm call), the device-busy ms and launches of one
@@ -33,7 +36,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PAIR_COUNTERS = ("pair_passes", "pair_chunks", "pair_dummy_edges")
+PAIR_COUNTERS = ("pair_passes", "pair_chunks", "pair_dummy_edges", "pair_schur_blocked")
 
 
 def measure(fused, theta, chunk, reference, busy):
@@ -132,8 +135,8 @@ def run(args, emit):
     centers = np.asarray(grid_centers(100))
     edges = Blocker(centers).neighbors(diag_connections=True)
 
-    def engine(dtype, ops):
-        cov = GPCov.create([1.0], [0.021213, 0.021213], "euclidean", "se", device="cuda",
+    def engine(dtype, ops, wfn="se"):
+        cov = GPCov.create([1.0], [0.021213, 0.021213], "euclidean", wfn, device="cuda",
                            dtype=dtype)
         return FusedSyntheticGPRF(X_obs, Y, edges, X_obs, obs_std, cov, 0.01, task="x",
                                   centers=centers, m=args.m, device="cuda", dtype=dtype,
@@ -156,6 +159,10 @@ def run(args, emit):
     record, ref = measure(fused, theta, "rule", None, busy=False)
     emit(record)
     emit(measure(fused, theta, 64, ref, busy=False)[0])
+    del fused, ref
+    fused = engine(torch.float32, mvn.KERNEL_OPS, wfn="matern32")
+    emit(dict(measure(fused, torch.as_tensor(x, dtype=torch.float32, device="cuda"), "rule",
+                      None, busy=True)[0], covariance="matern32"))
 
 
 if __name__ == "__main__":

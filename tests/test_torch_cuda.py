@@ -732,20 +732,102 @@ def test_pair_chunk_rule_on_card_at_80k(dev):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
-        profiling.fit_counts.update(pair_passes=0, pair_chunks=0, pair_dummy_edges=0)
+        profiling.fit_counts.update(pair_passes=0, pair_chunks=0, pair_dummy_edges=0,
+                                    pair_schur_blocked=0)
         v, g = value_and_grad(loss, x)
         torch.cuda.synchronize()
-        counts = {k: profiling.fit_counts[k]
-                  for k in ("pair_passes", "pair_chunks", "pair_dummy_edges")}
+        counts = {k: profiling.fit_counts[k] for k in
+                  ("pair_passes", "pair_chunks", "pair_dummy_edges", "pair_schur_blocked")}
         out[chunk] = (float(v), g.double(), torch.cuda.max_memory_allocated() - resident, counts)
         del loss, v, g
     (v, g, peak, counts), (vc, gc, _, counts_c) = out[None], out[64]
-    assert counts == dict(pair_passes=1, pair_chunks=1, pair_dummy_edges=0)
-    assert counts_c == dict(pair_passes=1, pair_chunks=6, pair_dummy_edges=6 * 64 - E)
+    # every chunk's S built in the split's blocks (m > K2's leaf at dy 50)
+    assert counts == dict(pair_passes=1, pair_chunks=1, pair_dummy_edges=0,
+                          pair_schur_blocked=1)
+    assert counts_c == dict(pair_passes=1, pair_chunks=6, pair_dummy_edges=6 * 64 - E,
+                            pair_schur_blocked=6)
     assert abs(v - vc) <= CHUNK_RTOL * abs(v)
     assert float(g @ gc / (g.norm() * gc.norm())) > CHUNK_COSINE
     estimate = E * PAIR_BUFFERS * m * m * 4
     assert 0.5 * estimate <= peak <= 1.25 * estimate, (peak / 1e9, estimate / 1e9)
+
+
+def test_pair_pass_builds_s_whole_at_the_flagship_width(dev):
+    """The 10k shapes at m = 136 (under K2's leaf at dy 50): one loss+grad
+    builds every Schur complement whole, so no chunk counts as blocked."""
+    from gprf_torch.kernels.gpcov import GPCov
+    from gprf_torch.model.fused import FusedSyntheticGPRF
+    from gprf_torch.optim.lbfgs import value_and_grad
+    from gprf_torch.partition.grid import Blocker, grid_centers
+    from gprf_torch.utils import profiling
+
+    rng = np.random.default_rng(10)
+    n, dy, obs_std = 10000, 50, 0.02
+    X_obs = rng.uniform(size=(n, 2)) + obs_std * rng.standard_normal((n, 2))
+    centers = np.asarray(grid_centers(100))
+    cov = GPCov.create([1.0], [0.06, 0.06], "euclidean", "se", device=dev, dtype=torch.float32)
+    fused = FusedSyntheticGPRF(X_obs, rng.standard_normal((n, dy)),
+                               Blocker(centers).neighbors(diag_connections=True), X_obs, obs_std,
+                               cov, 0.01, task="x", centers=centers, device=dev,
+                               dtype=torch.float32, acc_dtype=torch.float64)
+    assert fused.m == 136 < mvn.mvn_max_m(dy)  # the program's rule on this draw
+    profiling.fit_counts.update(pair_passes=0, pair_chunks=0, pair_schur_blocked=0)
+    v, g = value_and_grad(fused.loss_fn(), torch.as_tensor(fused.theta0(), dtype=torch.float32,
+                                                            device=dev))
+    torch.cuda.synchronize()
+    assert torch.isfinite(v) and bool(torch.isfinite(g).all())
+    assert profiling.fit_counts["pair_chunks"] == 1
+    assert profiling.fit_counts["pair_schur_blocked"] == 0
+
+
+def test_schur_conditional_on_card_matches_the_composition(dev):
+    """SchurConditional at [16, 896, 896] float32, split at the pair pass's
+    h: the blocks of S that the split reads, rhs and every gradient against
+    the eager composition it replaced (both float32 on cuBLAS, TF32 off)."""
+    from gprf_torch.model.objective import SchurConditional
+    from gprf_torch.ops.split_mvn import mvn_split_width
+
+    N, m, dy = 16, 896, 50
+    h = mvn_split_width(m, dy)
+    assert h == 448 and not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator(device=dev).manual_seed(21)
+    A = torch.randn(N, m, m, generator=g, device=dev) / m ** 0.5
+    C = A @ A.mT + torch.eye(m, device=dev)
+    leaves = [t.requires_grad_(True) for t in (
+        C, torch.randn(N, m, dy, generator=g, device=dev),
+        torch.randn(N, m, m, generator=g, device=dev) / m ** 0.5,
+        torch.randn(N, m, dy, generator=g, device=dev))]
+    S, rhs = SchurConditional.apply(leaves[0].clone(), *leaves[1:], h)
+    S_ref = leaves[0] - leaves[2].mT @ leaves[2]
+    rhs_ref = leaves[1] - leaves[2].mT @ leaves[3]
+    for a, b in ((S[:, :, :h], S_ref[:, :, :h]), (S[:, h:, h:], S_ref[:, h:, h:]),
+                 (rhs, rhs_ref)):
+        _close(a.detach(), b.detach())
+    dS = torch.randn(N, m, m, generator=g, device=dev)
+    dS[:, :h, h:] = 0
+    drhs = torch.randn(N, m, dy, generator=g, device=dev)
+    grads = torch.autograd.grad((S, rhs), leaves, (dS, drhs))
+    grads_ref = torch.autograd.grad((S_ref, rhs_ref), leaves, (dS, drhs))
+    for a, b in zip(grads, grads_ref):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("n", [20000, 36004, 160000])
+def test_runner_dot_rows_do_not_depend_on_the_replicas_on_card(dev, n):
+    """The L-BFGS runner's dot product on the card gives each row the bits
+    it gives that row alone at R 1-8 (a matrix product, or one sum over the
+    row, differs in the last bits), so a replica of a batched run steps as
+    its start steps alone; n as the 10k, seismic and 80k fits have it."""
+    from gprf_torch.optim.lbfgs import _dot
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    for trial in range(4):
+        a = torch.randn(8, n, generator=g, device=dev)
+        b = torch.randn(8, n, generator=g, device=dev) + trial * 1e-3 * a
+        for reps in (1, 2, 3, 4, 8):
+            rows = _dot(a[:reps], b[:reps])
+            for r in range(reps):
+                assert torch.equal(rows[r], _dot(a[r], b[r])), (trial, reps, r)
 
 
 def _wide_blocks_value_and_grad(dev, dtype, ops, m=248, dy=4):

@@ -250,12 +250,12 @@ GB = 10**9
 # (E, R, m, itemsize, budget bytes, chunk): the 80k shapes against half an
 # 80 GB card, and the CPU's rule (no budget)
 @pytest.mark.parametrize("E,R,m,itemsize,budget,chunk", [
-    (342, 1, 896, 4, 40 * GB, None),  # 17.6 GB fits: the whole pass
-    (342, 4, 896, 4, 40 * GB, 171),  # 70.3 GB: two equal chunks, no dummy
+    (342, 1, 896, 4, 40 * GB, None),  # 15.4 GB fits: the whole pass
+    (342, 4, 896, 4, 40 * GB, 171),  # 61.5 GB: two equal chunks, no dummy
     (343, 4, 896, 4, 40 * GB, 172),  # one dummy edge, fewer than the 2 chunks
-    (342, 1, 896, 8, 20 * GB, 171),  # float64 doubles the 17.6 GB
+    (342, 1, 896, 8, 20 * GB, 171),  # float64 doubles the 15.4 GB
     (342, 1, 896, 4, 20 * GB, None),  # ... which float32 fits
-    (342, 7, 896, 4, 40 * GB, 86),  # 123 GB: 4 chunks of 86, 2 dummy edges
+    (342, 8, 896, 4, 40 * GB, 86),  # 123 GB: 4 chunks of 86, 2 dummy edges
     (0, 4, 896, 4, 40 * GB, None),  # no edges (Local)
     (342, 1, 520, 4, None, 64),  # the CPU: the reference's 64 past m = 512
     (342, 4, 512, 8, None, None),
@@ -294,12 +294,14 @@ def test_fused_synthetic_chooses_the_chunk_from_each_calls_replicas(monkeypatch)
     assert fused.loss_pair_chunk(3) == -(-E // 2)
     theta = torch.as_tensor(np.stack([fused.theta0()] * 3))
     loss = fused.loss_fn()
-    profiling.fit_counts.update(pair_passes=0, pair_chunks=0, pair_dummy_edges=0)
+    profiling.fit_counts.update(pair_passes=0, pair_chunks=0, pair_dummy_edges=0,
+                                pair_schur_blocked=0)
     chunked = loss(theta)
     whole = torch.stack([loss(t) for t in theta])
     assert profiling.fit_counts["pair_passes"] == 4
     assert profiling.fit_counts["pair_chunks"] == 2 + 3
     assert profiling.fit_counts["pair_dummy_edges"] == 2 * -(-E // 2) - E
+    assert profiling.fit_counts["pair_schur_blocked"] == 0  # m under K2's leaf: S whole
     _close(chunked, whole, CHUNK_RTOL)
 
 

@@ -123,6 +123,20 @@ def test_multistart_runner_matches_jax_and_single_runs(rng):
                                    atol=1e-12)
 
 
+@pytest.mark.parametrize("n", [12, 20000, 36004])
+def test_runner_dot_rows_do_not_depend_on_the_replicas(n):
+    """The runner's dot product gives each row the bits it gives that row
+    alone, whatever the number of rows, and a . b."""
+    g = torch.Generator().manual_seed(n)
+    a, b = torch.randn(8, n, generator=g), torch.randn(8, n, generator=g)
+    for reps in (1, 2, 3, 4, 8):
+        rows = tlbfgs._dot(a[:reps], b[:reps])
+        for r in range(reps):
+            assert torch.equal(rows[r], tlbfgs._dot(a[r], b[r])), (reps, r)
+    a, b = a.double(), b.double()
+    np.testing.assert_allclose(tlbfgs._dot(a, b).numpy(), (a * b).sum(-1).numpy(), rtol=1e-12)
+
+
 @pytest.mark.parametrize("engine", ["synthetic", "seismic"])
 def test_multistart_runner_on_a_fused_loss_matches_jax(data, seismic, engine):
     """R replicas of a fused loss, folded into one objective batch, against

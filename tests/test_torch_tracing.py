@@ -127,6 +127,7 @@ def test_counters_json_of_a_fit(tmp_path):
     assert c["steps"] == c["evaluations"] - 1 - c["capacity_growths"]
     assert 0 < c["steps_accepted"] <= c["steps"]
     assert c["m_start"] == c["m_end"] and c["replicas"] == 1
+    assert c["pair_schur_blocked"] == 0
     # a read a dispatch, one at each checkpoint (one a dispatch, and the last)
     assert c["checkpoints"] == c["dispatches"] + 1
     assert c["host_syncs"] == c["dispatches"] + c["checkpoints"]
@@ -182,6 +183,7 @@ def test_counters_json_counts_the_pair_chunks(tmp_path, pair_chunk):
     nch, dummies = (1, 0) if pair_chunk is None else (2, 2)
     assert c["pair_chunks"] == nch * c["pair_passes"]
     assert c["pair_dummy_edges"] == dummies * c["pair_passes"]
+    assert c["pair_schur_blocked"] == 0  # m under K2's leaf: every S built whole
 
 
 def test_counters_json_across_a_forced_growth(tmp_path):
