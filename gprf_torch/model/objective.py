@@ -286,11 +286,12 @@ def _schur_ll(X, Y, assignment, mask, edges, unary_weights, pair_weights,
         Xb = X.reshape(R * n, -1).index_select(0, flat.reshape(-1)).reshape(R, B, m, X.shape[-1])
         Kp = unary_matrices(Xb)
         Ym = Y[assignment.long()] * maskf[..., None]
-        if unary_doubling:
-            Ls = cholesky_split(Kp.reshape(R * B, m, m), ops=ops)
-            Ws = batched_tri_inv_doubling(Ls)
-        else:
-            Ls, Ws = chol_inv_split(Kp.reshape(R * B, m, m), ops=ops)
+        with span("unary_factor"):
+            if unary_doubling:
+                Ls = cholesky_split(Kp.reshape(R * B, m, m), ops=ops)
+                Ws = batched_tri_inv_doubling(Ls)
+            else:
+                Ls, Ws = chol_inv_split(Kp.reshape(R * B, m, m), ops=ops)
         Ls, Ws = Ls.reshape(R, B, m, m), Ws.reshape(R, B, m, m)
         Zs = Ws @ Ym
         quads = torch.sum((Zs * Zs).to(acc), dim=(-2, -1))

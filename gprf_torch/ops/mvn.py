@@ -32,6 +32,7 @@ same arithmetic as the twins, but checked and never split.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -349,6 +350,26 @@ def _chol_pullback(L, W, dL):
     return _sym(W.mT @ _sym(phi) @ W)
 
 
+@functools.lru_cache(maxsize=None)
+def _quarter_phi_mask(m: int, dtype, device):
+    """[m, m]: 1/4 below the diagonal, 1/8 on it, 0 above, so that
+    P * mask = phi(P) / 4."""
+    mask = torch.tril(torch.full((m, m), 0.25, dtype=torch.float64), -1) + 0.125 * torch.eye(m)
+    return mask.to(dtype=dtype, device=device)
+
+
+def chol_inv_pullback(L, W, dL, dW, out=None):
+    """dK of (L, W = L^-1) = chol_inv(K) for [B, m, m] from the cotangents
+    dL and dW: dL' = tril(dL - W^T dW W^T), then :func:`_chol_pullback`'s
+    sym(W^T sym(phi(L^T dL')) W), in nine launches (the factors 1/2 of both
+    symmetrizations ride in the mask, exactly), into ``out`` where given."""
+    G = torch.baddbmm(dL, W.mT @ dW, W.mT, alpha=-1).tril_()
+    s = (L.mT @ G).mul_(_quarter_phi_mask(L.shape[-1], L.dtype, L.device))
+    s = s + s.mT  # sym(phi) / 2
+    r = W.mT @ s @ W
+    return torch.add(r, r.mT, out=out)
+
+
 def _mvn_pullback(W, Z, g, needs_nact):
     """(dK, dY, d n_active) of the masked MVN from W = L^-1 and Z = L^-1 Y:
     alpha = W^T Z, dK = g/2 (alpha alpha^T - dy W^T W), dY = -g alpha."""
@@ -361,8 +382,9 @@ def _mvn_pullback(W, Z, g, needs_nact):
 
 
 class CholInv(torch.autograd.Function):
-    """(L, W) = K1(K), with the einsum-only pullback of ``_chol_inv_bwd``:
-    dL += -tril(W^T dW W^T), then dK = sym(W^T phi(L^T dL) W)."""
+    """(L, W) = K1(K), with the products-only pullback of ``_chol_inv_bwd``
+    (:func:`chol_inv_pullback`): dL += -tril(W^T dW W^T), then
+    dK = sym(W^T phi(L^T dL) W)."""
 
     @staticmethod
     def forward(ctx, K):
@@ -373,7 +395,7 @@ class CholInv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dL, dW):
         L, W = ctx.saved_tensors
-        return _chol_pullback(L, W, torch.tril(dL + _w_cotangent(W, dW)))
+        return chol_inv_pullback(L, W, dL, dW)
 
 
 class MvnLL(torch.autograd.Function):

@@ -17,6 +17,11 @@ Leaves without caps (``ops.leaf_caps`` false: :data:`~gprf_torch.ops.mvn.LINALG_
 the float64 route on ``torch.linalg``) take a block of any width whole
 unless a ``leaf`` is given.
 
+Where a gradient is taken, :func:`chol_inv_split` is one autograd Function
+(:class:`CholInvSplit`): its forward writes every block of L and W into one
+buffer each, and its backward runs the recursion's pullback by hand into one
+buffer of dK, with no slice, concatenation or zero fill of autograd's.
+
 Identity-padded masking passes through the split exactly: a padded row in
 the A part stays an identity row of L_A, and a padded row in the C part
 has zero K21 and L21 rows, so C' keeps its identity row.  Split points are
@@ -34,6 +39,7 @@ from gprf_torch.ops.mvn import (
     MAX_M_TRI_INV,
     Ops,
     mvn_inv_supported,
+    chol_inv_pullback,
     mvn_max_m,
 )
 
@@ -107,13 +113,92 @@ def chol_inv_split(K, leaf: int | None = None, ops: Ops = KERNEL_OPS):
     leaf = _leaf(leaf, LEAF_CHOL, ops, m)
     if m <= leaf:
         return ops.chol_inv(K)
+    return CholInvSplit.apply(K, leaf, ops)
+
+
+def _chol_inv_into(K, L, W, leaf, ops, saved):
+    """Writes chol_inv(K) into the views L and W, whose blocks above the
+    diagonal are zero, and appends what the pullback reads of each split
+    node, (K21, X = Wc L21), after its children's:
+
+        L21 = K21 W_A^T,  S = C - L21 L21^T,  (L_C, W_C) = chol_inv(S),
+        W21 = -X W_A."""
+    m = K.shape[-1]
+    if m <= leaf:
+        Lk, Wk = ops.chol_inv(K)
+        L.copy_(Lk)
+        W.copy_(Wk)
+        return
     h = split_point(m)
     A, K21, C = _blocks(K, h)
-    La, Wa = chol_inv_split(A, leaf, ops)
-    L21 = K21 @ Wa.mT
-    Lc, Wc = chol_inv_split(C - L21 @ L21.mT, leaf, ops)
-    W21 = -(Wc @ L21 @ Wa)
-    return _assemble_lower(La, L21, Lc), _assemble_lower(Wa, W21, Wc)
+    La, L21, Lc = _blocks(L, h)
+    Wa, W21, Wc = _blocks(W, h)
+    _chol_inv_into(A, La, Wa, leaf, ops, saved)
+    L21.baddbmm_(K21, Wa.mT, beta=0)
+    _chol_inv_into(torch.baddbmm(C, L21, L21.mT, alpha=-1), Lc, Wc, leaf, ops, saved)
+    X = Wc @ L21
+    W21.baddbmm_(X, Wa, beta=0, alpha=-1)
+    saved += [K21, X]
+
+
+def _chol_inv_pullback_into(L, W, dL, dW, dK, leaf, saved):
+    """Writes the cotangent of K into the view dK (zero above the blocks'
+    diagonal, as K's upper right blocks are not read) from the cotangents
+    dL and dW, views that it accumulates into.  It visits the nodes in the
+    reverse of :func:`_chol_inv_into`'s order, popping ``saved``."""
+    m = L.shape[-1]
+    if m <= leaf:
+        chol_inv_pullback(L, W, dL, dW, out=dK)
+        return
+    h = split_point(m)
+    X = saved.pop()
+    K21 = saved.pop()
+    La, L21, Lc = _blocks(L, h)
+    Wa, W21, Wc = _blocks(W, h)
+    dLa, dL21, dLc = _blocks(dL, h)
+    dWa, dW21, dWc = _blocks(dW, h)
+    dA, dK21, dC = _blocks(dK, h)
+    # W21 = -X Wa, X = Wc L21
+    dX = dW21 @ Wa.mT  # the cotangent of X is -dX
+    dWa.baddbmm_(X.mT, dW21, alpha=-1)
+    dWc.baddbmm_(dX, L21.mT, alpha=-1)
+    dL21.baddbmm_(Wc.mT, dX, alpha=-1)
+    # (Lc, Wc) = chol_inv(S), S = C - L21 L21^T: dC = dS
+    _chol_inv_pullback_into(Lc, Wc, dLc, dWc, dC, leaf, saved)
+    dL21.baddbmm_(dC + dC.mT, L21, alpha=-1)
+    # L21 = K21 Wa^T
+    dK21.baddbmm_(dL21, Wa, beta=0)
+    dWa.baddbmm_(dL21.mT, K21)
+    _chol_inv_pullback_into(La, Wa, dLa, dWa, dA, leaf, saved)
+
+
+class CholInvSplit(torch.autograd.Function):
+    """(L, W = L^-1) of SPD [B, m, m] through the 2x2 split down to leaves
+    of width ``leaf`` on ``ops.chol_inv``, with the split's pullback written
+    by hand and each leaf's by :func:`chol_inv_pullback`.  Per split node
+    the forward runs four products (the Schur subtraction in its product's
+    epilogue) and the backward seven and one transposed sum; the gradient
+    is the one autograd gives through the composed recursion."""
+
+    @staticmethod
+    def forward(ctx, K, leaf, ops):
+        B, m = K.shape[0], K.shape[-1]
+        L = K.new_zeros(B, m, m)
+        W = K.new_zeros(B, m, m)
+        saved = []
+        _chol_inv_into(K, L, W, leaf, ops, saved)
+        ctx.leaf = leaf
+        ctx.save_for_backward(L, W, *saved)
+        return L, W
+
+    @staticmethod
+    def backward(ctx, dL, dW):
+        L, W, *saved = ctx.saved_tensors
+        dK = torch.zeros_like(L)
+        _chol_inv_pullback_into(L, W, dL.clone(memory_format=torch.contiguous_format),
+                                dW.clone(memory_format=torch.contiguous_format), dK,
+                                ctx.leaf, saved)
+        return dK, None, None
 
 
 def tri_inv_split(L, leaf: int | None = None, ops: Ops = KERNEL_OPS):

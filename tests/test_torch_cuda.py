@@ -1598,3 +1598,35 @@ def test_se_kernel_counts_launches_and_refuses_float64(dev):
     with pytest.raises(TypeError, match="float32"):
         se_kernel.se_kernel(*args)
     assert mvn.LINALG_OPS.se_kernel is se_kernel.se_kernel_plain
+
+
+def test_exact_gp_at_10k_on_card_matches_the_benchmark_reference(dev):
+    """One loss+grad of the device engine in one block at n = 10,000 (the
+    benchmark's exact-GP cell: m = 10,000, chol_inv_split six levels deep at
+    batch 1, 64 K1 leaves) against the cell's float64 reference, within the
+    cell's limits."""
+    from gprf_torch.kernels.gpcov import GPCov
+    from gprf_torch.model.fused import FusedSyntheticGPRF
+    from gprf_torch.optim.lbfgs import value_and_grad
+    from gprfbench import data as bdata
+    from gprfbench import spec
+
+    cell = spec.load_cell("fullgp10k.device_fit")
+    cfg = cell.config
+    problem = bdata.make_problem(cell, 2**31 + 2201, dev)
+    X_obs = problem.x_obs(bdata.JOB, 0)
+    cov = GPCov.create([cfg["signal_var"]], [cfg["lscale"]] * cfg["dx"], "euclidean", "se",
+                       device="cpu", dtype=torch.float64)
+    fused = FusedSyntheticGPRF(X_obs, problem.Y, problem.edges, X_obs, cfg["obs_std"], cov,
+                               cfg["noise_var"], task="x", centers=problem.centers, device=dev,
+                               dtype=torch.float32, acc_dtype=torch.float64)
+    assert fused.n_blocks == 1 and fused.m == cfg["ntrain"]
+    theta = torch.as_tensor(X_obs.reshape(-1), dtype=torch.float32, device=dev)
+    mvn.reset_launch_counts()
+    v, g = value_and_grad(fused.loss_fn(), theta)
+    assert mvn.launch_counts["chol_inv"] == 64
+    ref = problem.ref_loss(theta.double().cpu().numpy().reshape(-1, 2), X_obs, grad=True)
+    loss_gap = abs(float(v) - ref.value) / abs(ref.value)
+    grad_gap = float(torch.linalg.vector_norm(g.double() - ref.grad)) / ref.ll_grad_norm
+    print("exact GP at 10k: loss_gap %.3e grad_gap %.3e" % (loss_gap, grad_gap))
+    assert loss_gap <= cell.limits["loss_gap"] and grad_gap <= cell.limits["grad_gap"]

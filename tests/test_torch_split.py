@@ -213,3 +213,54 @@ def test_mvn_leaf_follows_the_k2_cap(m):
     h = tsplit.split_point(m)
     assert calls == ([("mvn_ll", m)] if m <= 208 else [("chol_inv", h), ("mvn_ll", m - h)])
     np.testing.assert_allclose(ll.numpy(), -0.5 * 50 * m * mvn.LOG_2PI, rtol=1e-12)
+
+
+def _chol_inv_composed(K, leaf):
+    """The 2x2 split as autograd composes it: slices, products, concatenation."""
+    m = K.shape[-1]
+    if m <= leaf:
+        return mvn.chol_inv_plain(K)
+    h = tsplit.split_point(m)
+    A, K21, C = K[:, :h, :h], K[:, h:, :h], K[:, h:, h:]
+    La, Wa = _chol_inv_composed(A, leaf)
+    L21 = K21 @ Wa.mT
+    Lc, Wc = _chol_inv_composed(C - L21 @ L21.mT, leaf)
+    return (tsplit._assemble_lower(La, L21, Lc),
+            tsplit._assemble_lower(Wa, -(Wc @ L21 @ Wa), Wc))
+
+
+@pytest.mark.parametrize("m,leaf", [(40, 16), (100, 16), (137, 24), (20, 16)])
+def test_chol_inv_split_function_matches_the_composed_split(rng, m, leaf):
+    """CholInvSplit's forward and its hand-written pullback against autograd
+    through the composed recursion, on a strided view of a wider batch and
+    with cotangents on every entry of L and W (above the diagonal too)."""
+    wide = _t(_spd(rng, 3, m + 5))
+    K = wide[:, 5:, 5:]  # a view, as the split's upper block is
+    gL, gW = _t(rng.normal(size=(3, m, m))), _t(rng.normal(size=(3, m, m)))
+    out = {}
+    for name, fn in (("function", lambda K: tsplit.chol_inv_split(K, leaf=leaf, ops=mvn.PLAIN_OPS)),
+                     ("composed", lambda K: _chol_inv_composed(K, leaf))):
+        Kv = K.clone().requires_grad_(True)
+        L, W = fn(Kv)
+        (dK,) = torch.autograd.grad((L * gL).sum() + (W * gW).sum(), Kv)
+        out[name] = (L.detach(), W.detach(), dK)
+    for a, b in zip(out["function"], out["composed"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10, atol=1e-12)
+    h = tsplit.split_point(m)
+    if m > leaf:  # K's upper right block is not read
+        assert torch.equal(out["function"][2][:, :h, h:], torch.zeros(3, h, m - h,
+                                                                       dtype=torch.float64))
+
+
+def test_chol_inv_pullback_matches_the_composed_pullback(rng):
+    """The leaves' nine-launch pullback against the formula it fuses."""
+    K = _t(_spd(rng, 2, 24))
+    L, W = mvn.chol_inv_plain(K)
+    dL, dW = _t(rng.normal(size=(2, 24, 24))), _t(rng.normal(size=(2, 24, 24)))
+    ref = mvn._chol_pullback(L, W, torch.tril(dL + mvn._w_cotangent(W, dW)))
+    out = torch.empty(2, 30, 30, dtype=torch.float64)[:, 3:27, 3:27]
+    got = mvn.chol_inv_pullback(L, W, dL, dW, out=out)
+    assert got.data_ptr() == out.data_ptr()
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(mvn.chol_inv_pullback(L, W, dL, dW).numpy(), ref.numpy(),
+                               rtol=1e-12, atol=1e-12)

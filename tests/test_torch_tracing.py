@@ -67,7 +67,8 @@ def test_span_tree_of_a_fit(tmp_path):
                "step": {"dispatch"}, "forward": {"step", "init_eval"},
                "backward": {"step", "init_eval"}, "update": {"step"},
                "overflow_check": {"dispatch"}, "sync": {"dispatch", "checkpoint", "fit"},
-               "checkpoint": {"fit"}, **{k: {"forward"} for k in LOSS_SPANS}}
+               "checkpoint": {"fit"}, **{k: {"forward"} for k in LOSS_SPANS},
+               "unary_factor": {"unary_pass"}}
     assert {s.name for s in recorded} == set(parents)
     for s, p in zip(recorded, parent):
         assert p in parents[s.name], (s, p)
@@ -218,8 +219,9 @@ def test_device_trace_shows_the_spans_over_the_ops(tmp_path):
     with open(tmp_path / name) as f:
         events = json.load(f)["traceEvents"]
     spans = {e["name"]: e for e in events if e.get("cat") == "gprf_span"}
-    assert set(spans) == {"forward", "backward"} | LOSS_SPANS
+    assert set(spans) == {"forward", "backward", "unary_factor"} | LOSS_SPANS
     assert spans["reblock"]["args"]["parent"] == "forward"
+    assert spans["unary_factor"]["args"]["parent"] == "unary_pass"
     # the nearest-centre labels are the re-block's alone
     block = spans["reblock"]
     ops = [e for e in events if e.get("name") == "aten::argmin"]
@@ -258,10 +260,11 @@ def test_spans_of_a_seismic_evaluation():
     x = torch.as_tensor(_seismic_thetas(fused, 2))
     recorded, parent = _recorded(lambda: lbfgs.value_and_grad(fused.loss_fn(), x))
     seen = {s.name: p for s, p in zip(recorded, parent)}
-    assert set(seen) == {"forward", "backward", "pdtree_reblock", "unary_pass", "pair_pass",
-                         "prior"}
+    assert set(seen) == {"forward", "backward", "pdtree_reblock", "unary_pass", "unary_factor",
+                         "pair_pass", "prior"}
     assert all(seen[k] == "forward" for k in ("pdtree_reblock", "unary_pass", "pair_pass",
                                              "prior"))
+    assert seen["unary_factor"] == "unary_pass"
     assert [s.name for s in recorded].count("pdtree_reblock") == 1
 
 
